@@ -1,0 +1,137 @@
+"""Image -> point-cloud generator: RepVGG backbone + edge branch + cascaded
+decoder (counterpart of ``fenet/models/generator.py``), eval forward.
+
+Inputs keep the JAX package's layout, (B, 128, 128, 3) uint8 or float with
+raw 0..255 values; the generator permutes to NCHW once. Clouds come out
+(B, N, 3). The state_dict uses the reference's flat names (``RepVGG.*``,
+``edge0.*``, ``edge2.*``, ``linear``, ``fc1`` ... ``conv2_1``), so a reference
+``.pth.tar`` loads with ``strict=True``; the decoder's per-point layers are
+``Conv1d(k=1)`` over torch's native (B, C, L).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fenet_torch.models.repvgg import _BN_EPS, REPVGG_CONFIGS, RepVGG
+
+# The reference's fixed 3x3 edge filter, the same for every (out, in) pair.
+_EDGE_KERNEL = np.array(
+    [[-1.0, -1.0, -1.0], [-1.0, 8.0, -1.0], [-1.0, -1.0, -1.0]], np.float32
+) / 3.0
+
+
+def edge_conv2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Fixed edge-detection conv on NCHW (B, 3, H, W); ``kernel`` is the
+    (3, 3, 3, 3) broadcast of ``_EDGE_KERNEL``."""
+    return F.conv2d(x, kernel, padding=1)
+
+
+def _edge_conv(cin: int, cout: int) -> nn.Sequential:
+    return nn.Sequential(
+        nn.Conv2d(cin, cout, 3, 2, 1, bias=False),
+        nn.BatchNorm2d(cout, eps=_BN_EPS),
+        nn.ReLU(),
+    )
+
+
+class EdgeBranch(nn.Module):
+    """Fixed edge conv -> two strided conv+BN+ReLU -> 1000-d linear."""
+
+    def __init__(self):
+        super().__init__()
+        self.edge0 = _edge_conv(3, 16)  # (B, 16, 64, 64)
+        self.edge2 = _edge_conv(16, 3)  # (B, 3, 32, 32)
+        self.linear = nn.Linear(3 * 32 * 32, 1000)
+
+    def forward(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        e = self.edge2(self.edge0(edge_conv2d(x, kernel)))
+        return self.linear(e.flatten(1))  # (C, H, W) order, as the reference
+
+
+class CascadedDecoder(nn.Module):
+    """Coarse-to-fine decoder: 128 points, 2x offsets -> 256, then
+    (num_points/256)x offsets -> num_points."""
+
+    def __init__(self, num_points: int = 1024, fine_width: int = 512,
+                 mid_width: int = 128):
+        super().__init__()
+        if num_points % 256 != 0:
+            raise ValueError("num_points must be a multiple of 256")
+        self.num_points, self.fine_width, self.mid_width = num_points, fine_width, mid_width
+        self.fc1 = nn.Linear(2000, 1024)
+        self.fc2 = nn.Linear(1024, 512)
+        self.fc3 = nn.Linear(512, 256)
+        self.fc1_1 = nn.Linear(1024, 256 * fine_width)
+        self.fc2_1 = nn.Linear(512, 128 * mid_width)
+        self.fc3_1 = nn.Linear(256, 128 * 3)
+        self.conv1_1 = nn.Conv1d(fine_width, fine_width, 1)
+        self.conv1_2 = nn.Conv1d(fine_width, 256, 1)
+        self.conv1_3 = nn.Conv1d(256, 3 * (num_points // 256), 1)
+        self.conv2_1 = nn.Conv1d(mid_width, 6, 1)
+
+    def forward(self, feat: torch.Tensor):
+        b = feat.shape[0]
+        x1 = torch.relu(self.fc1(feat))
+        x2 = torch.relu(self.fc2(x1))
+        x3 = torch.relu(self.fc3(x2))
+        pc1 = self.fc3_1(x3).reshape(b, 128, 3)
+
+        pc2_feat = torch.relu(self.fc2_1(x2)).reshape(b, self.mid_width, 128)
+        pc2_off = self.conv2_1(pc2_feat).transpose(1, 2).reshape(b, 128, 2, 3)
+        pc2 = (pc1[:, :, None, :] + pc2_off).reshape(b, 256, 3)
+
+        k = self.num_points // 256
+        pc3_feat = torch.relu(self.fc1_1(x1)).reshape(b, self.fine_width, 256)
+        pc3_feat = torch.relu(self.conv1_1(pc3_feat))
+        pc3_feat = torch.relu(self.conv1_2(pc3_feat))
+        pc3_off = self.conv1_3(pc3_feat).transpose(1, 2).reshape(b, 256, k, 3)
+        pc3 = (pc2[:, :, None, :] + pc3_off).reshape(b, self.num_points, 3)
+        return pc1, pc2, pc3
+
+
+class Generator(nn.Module):
+    """The cmlp cascaded generator. ``forward(images) -> (pc1, pc2, pc3)``,
+    (B,128,3), (B,256,3), (B,num_points,3)."""
+
+    def __init__(self, num_points: int = 1024, backbone: str = "RepVGG-A2",
+                 fine_width: int = 512, mid_width: int = 128):
+        super().__init__()
+        self.RepVGG = RepVGG(REPVGG_CONFIGS[backbone])
+        # The parts' layers are registered on the generator itself, so the
+        # state_dict keeps the reference's flat names; the parts are held
+        # outside the module tree only for their forward.
+        self._parts = (EdgeBranch(), CascadedDecoder(num_points, fine_width, mid_width))
+        for part in self._parts:
+            for name, child in part.named_children():
+                self.add_module(name, child)
+        kernel = torch.from_numpy(np.broadcast_to(_EDGE_KERNEL, (3, 3, 3, 3)).copy())
+        self.register_buffer("edge_kernel", kernel, persistent=False)
+
+    def forward(self, images: torch.Tensor):
+        x = images.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+        edge_branch, decoder = self._parts
+        feat = self.RepVGG(x)
+        edge = edge_branch(x, self.edge_kernel)
+        return decoder(torch.cat([feat, edge], dim=1))
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill conv and linear weights and biases with U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) drawn from ``generator`` (on the model's device); reset
+    BatchNorm to its identity (weight 1, bias 0, running mean 0, var 1)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            m.weight.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model

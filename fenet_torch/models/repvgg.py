@@ -1,0 +1,145 @@
+"""RepVGG backbone in PyTorch, branched (train-time) form, evaluated in eval
+mode (counterpart of ``fenet/models/repvgg.py``).
+
+Module names follow the reference state_dict
+(``RepVGG.stage1.0.rbr_dense.conv.weight``, ``RepVGG.stage0.rbr_identity``,
+``RepVGG.linear``), so a reference ``.pth.tar`` loads with ``strict=True``.
+Layout is NCHW inside; the generator permutes its NHWC input once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Mapping, Sequence, Tuple
+
+import torch
+from torch import nn
+
+_BN_EPS = 1e-5  # torch BatchNorm2d default, as in fenet
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excite gate."""
+
+    def __init__(self, channels: int, internal: int):
+        super().__init__()
+        self.down = nn.Linear(channels, internal)
+        self.up = nn.Linear(internal, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = x.mean(dim=(2, 3))
+        w = torch.sigmoid(self.up(torch.relu(self.down(w))))
+        return x * w[:, :, None, None]
+
+
+def _conv_bn(cin: int, cout: int, kernel: int, stride: int, padding: int,
+             groups: int) -> nn.Sequential:
+    seq = nn.Sequential()
+    seq.add_module("conv", nn.Conv2d(cin, cout, kernel, stride, padding,
+                                     groups=groups, bias=False))
+    seq.add_module("bn", nn.BatchNorm2d(cout, eps=_BN_EPS))
+    return seq
+
+
+class RepVGGBlock(nn.Module):
+    """conv3x3+BN || conv1x1+BN || identity BN, summed, optional SE, ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 groups: int = 1, use_se: bool = False):
+        super().__init__()
+        self.rbr_dense = _conv_bn(in_channels, out_channels, 3, stride, 1, groups)
+        self.rbr_1x1 = _conv_bn(in_channels, out_channels, 1, stride, 0, groups)
+        self.rbr_identity = (
+            nn.BatchNorm2d(in_channels, eps=_BN_EPS)
+            if in_channels == out_channels and stride == 1 else None
+        )
+        self.se = SEBlock(out_channels, out_channels // 16) if use_se else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.rbr_dense(x) + self.rbr_1x1(x)
+        if self.rbr_identity is not None:
+            out = out + self.rbr_identity(x)
+        if self.se is not None:
+            out = self.se(out)
+        return torch.relu(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class RepVGGConfig:
+    num_blocks: Sequence[int]
+    width_multiplier: Sequence[float]
+    override_groups_map: Mapping[int, int] = dataclasses.field(default_factory=dict)
+    use_se: bool = False
+    num_classes: int = 1000
+
+
+_G_LAYERS = (2, 4, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24, 26)
+_G2 = {layer: 2 for layer in _G_LAYERS}
+_G4 = {layer: 4 for layer in _G_LAYERS}
+
+REPVGG_CONFIGS: Dict[str, RepVGGConfig] = {
+    "RepVGG-A0": RepVGGConfig([2, 4, 14, 1], [0.75, 0.75, 0.75, 2.5]),
+    "RepVGG-A1": RepVGGConfig([2, 4, 14, 1], [1, 1, 1, 2.5]),
+    "RepVGG-A2": RepVGGConfig([2, 4, 14, 1], [1.5, 1.5, 1.5, 2.75]),
+    "RepVGG-B0": RepVGGConfig([4, 6, 16, 1], [1, 1, 1, 2.5]),
+    "RepVGG-B1": RepVGGConfig([4, 6, 16, 1], [2, 2, 2, 4]),
+    "RepVGG-B1g2": RepVGGConfig([4, 6, 16, 1], [2, 2, 2, 4], _G2),
+    "RepVGG-B1g4": RepVGGConfig([4, 6, 16, 1], [2, 2, 2, 4], _G4),
+    "RepVGG-B2": RepVGGConfig([4, 6, 16, 1], [2.5, 2.5, 2.5, 5]),
+    "RepVGG-B2g2": RepVGGConfig([4, 6, 16, 1], [2.5, 2.5, 2.5, 5], _G2),
+    "RepVGG-B2g4": RepVGGConfig([4, 6, 16, 1], [2.5, 2.5, 2.5, 5], _G4),
+    "RepVGG-B3": RepVGGConfig([4, 6, 16, 1], [3, 3, 3, 5]),
+    "RepVGG-B3g2": RepVGGConfig([4, 6, 16, 1], [3, 3, 3, 5], _G2),
+    "RepVGG-B3g4": RepVGGConfig([4, 6, 16, 1], [3, 3, 3, 5], _G4),
+    "RepVGG-D2se": RepVGGConfig([8, 14, 24, 1], [2.5, 2.5, 2.5, 5], use_se=True),
+    # A miniature config for fast CPU tests.
+    "RepVGG-TEST": RepVGGConfig([1, 1, 1, 1], [0.25, 0.25, 0.25, 0.25]),
+}
+
+
+def _stage_plan(config: RepVGGConfig) -> List[Tuple[str, int, int, int]]:
+    """(name, out_channels, stride, groups) for every block, in order."""
+    wm = config.width_multiplier
+    in_planes = min(64, int(64 * wm[0]))
+    plan = [("stage0", in_planes, 2, 1)]
+    layer_idx = 1
+    widths = [int(64 * wm[0]), int(128 * wm[1]), int(256 * wm[2]),
+              int(512 * wm[3])]
+    for stage_i, (planes, blocks) in enumerate(zip(widths, config.num_blocks), start=1):
+        for block_i, stride in enumerate([2] + [1] * (blocks - 1)):
+            groups = config.override_groups_map.get(layer_idx, 1)
+            plan.append((f"stage{stage_i}_{block_i}", planes, stride, groups))
+            layer_idx += 1
+    return plan
+
+
+class RepVGG(nn.Module):
+    """stage0 + four stages + global average pool + linear classifier."""
+
+    def __init__(self, config: RepVGGConfig):
+        super().__init__()
+        self.config = config
+        stages: Dict[str, List[RepVGGBlock]] = {}
+        in_ch = 3
+        for name, planes, stride, groups in _stage_plan(config):
+            block = RepVGGBlock(in_ch, planes, stride, groups, config.use_se)
+            stages.setdefault(name.split("_")[0], []).append(block)
+            in_ch = planes
+        self.stage0 = stages.pop("stage0")[0]
+        for name, blocks in stages.items():
+            self.add_module(name, nn.Sequential(*blocks))
+        self.linear = nn.Linear(in_ch, config.num_classes)
+
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        """Conv stages only: (B, 3, H, W) -> final (B, C, h, w) feature map."""
+        x = self.stage0(x)
+        for name in ("stage1", "stage2", "stage3", "stage4"):
+            x = getattr(self, name)(x)
+        return x
+
+    def head(self, feature_map: torch.Tensor) -> torch.Tensor:
+        """Global average pool + classifier."""
+        return self.linear(feature_map.mean(dim=(2, 3)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.forward_features(x))

@@ -1,0 +1,123 @@
+"""Build the CUDA kernels in ``fenet_torch/csrc`` at first use.
+
+Each ``.cu`` file is compiled by ``nvcc`` into its own shared library with a
+plain C interface and loaded with ``ctypes``; no PyTorch header is involved,
+so a build takes seconds. Libraries go to ``build/fenet_torch/`` at the root
+of the checkout, named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. All missing
+libraries are compiled in parallel, one ``nvcc`` process per source.
+
+The wrappers check their tensors here before a pointer crosses into C, and
+raise on a launch that returned a CUDA error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "fenet_torch"
+
+# Kernel library name -> source file in csrc/.
+SOURCES = {
+    "chamfer_nn": "chamfer_nn.cu",
+    "emd_auction": "emd_auction.cu",
+}
+
+# No --use_fast_math: the kernels' arithmetic must be IEEE float32 to agree
+# with the plain PyTorch versions bit for bit.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
+    """Compile every named library that is not built yet, all at once.
+
+    Returns ``{name: ptxas report}`` for the libraries compiled by this call
+    (registers, shared memory and spills per kernel). Raises RuntimeError
+    with nvcc's output if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        jobs[name] = (target, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (target, tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]} (nvcc exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, target)
+        reports[name] = out
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
+    return lib
+
+
+def check_clouds(a, b, kernel: str) -> None:
+    """Raise ValueError unless a (B,N,3) and b (B,M,3) are what a kernel
+    takes: float32, contiguous, N and M > 0, on one CUDA device."""
+    for name, x in (("a", a), ("b", b)):
+        if x.device.type != "cuda":
+            raise ValueError(f"{kernel}: {name} is on {x.device}, not a CUDA device")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{kernel}: {name} has dtype {x.dtype}, needs float32")
+        if x.dim() != 3 or x.shape[-1] != 3 or x.shape[1] == 0:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, needs (B, N>0, 3)")
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+    if a.device != b.device or a.shape[0] != b.shape[0]:
+        raise ValueError(
+            f"{kernel}: clouds on {a.device}/{b.device} with batch "
+            f"{a.shape[0]}/{b.shape[0]} do not pair up")
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {status}")
