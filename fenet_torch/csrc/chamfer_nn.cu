@@ -1,6 +1,11 @@
 // Directional nearest neighbour for the chamfer distance, for Hopper (sm_90a).
 //
-// Replaces fenet/ops/chamfer.py:_nn_kernel (Pallas; wrapper _nn_pallas).
+// Replaces fenet/ops/chamfer.py:_nn_kernel (Pallas; wrapper _nn_pallas, M <=
+// 8192) and :_nn_stream_kernel (wrapper _nn_pallas_stream, M > 8192): the
+// TPU needs a second kernel once B no longer fits VMEM; here B always
+// streams through shared memory in tiles, so one kernel takes any M, and the
+// strict '<' over rising j keeps the first argmin across tiles as the
+// streaming kernel's running fold does.
 // For every point a_i of cloud A (B, N, 3):
 //   dist_i = min_j max((|a_i|^2 + |b_j|^2) - 2 a_i.b_j, 0)
 //   idx_i  = the first j that attains it (as torch.min and jnp.argmin do),

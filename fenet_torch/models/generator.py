@@ -1,5 +1,8 @@
 """Image -> point-cloud generator: RepVGG backbone + edge branch + cascaded
-decoder (counterpart of ``fenet/models/generator.py``), eval forward.
+decoder (counterpart of ``fenet/models/generator.py``). ``model.eval()``
+matches ``Generator.apply(train=False)``; ``model.train()`` matches
+``Generator.apply(train=True, mutable=["batch_stats"])``, running statistics
+included.
 
 Inputs keep the JAX package's layout, (B, 128, 128, 3) uint8 or float with
 raw 0..255 values; the generator permutes to NCHW once. Clouds come out
@@ -18,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fenet_torch.models.repvgg import _BN_EPS, REPVGG_CONFIGS, RepVGG
+from fenet_torch.models.repvgg import REPVGG_CONFIGS, BatchNorm2d, RepVGG
 
 # The reference's fixed 3x3 edge filter, the same for every (out, in) pair.
 _EDGE_KERNEL = np.array(
@@ -35,7 +38,7 @@ def edge_conv2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 def _edge_conv(cin: int, cout: int) -> nn.Sequential:
     return nn.Sequential(
         nn.Conv2d(cin, cout, 3, 2, 1, bias=False),
-        nn.BatchNorm2d(cout, eps=_BN_EPS),
+        BatchNorm2d(cout),
         nn.ReLU(),
     )
 

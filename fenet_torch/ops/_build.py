@@ -31,6 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "fenet_torch"
 SOURCES = {
     "chamfer_nn": "chamfer_nn.cu",
     "emd_auction": "emd_auction.cu",
+    "sinkhorn": "sinkhorn.cu",
 }
 
 # No --use_fast_math: the kernels' arithmetic must be IEEE float32 to agree

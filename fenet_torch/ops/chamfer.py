@@ -3,8 +3,12 @@ PyTorch version (counterpart of ``fenet/ops/chamfer.py``).
 
 ``chamfer_distance(xyz1, xyz2) -> (dist1, dist2, idx1, idx2)``: squared L2
 nearest-neighbour distances in both directions and the first argmin indices,
-the 4-tuple of the reference's CUDA extension. Forward only; the gradient
-rule belongs to the training slice.
+the 4-tuple of the reference's CUDA extension. The gradient is the
+reference's (``fenet/ops/chamfer.py:_chamfer_bwd``): with
+``grad1 = 2·g1·(x1 − x2[idx1])`` and ``grad2 = 2·g2·(x2 − x1[idx2])``,
+``dxyz1 = grad1 − scatter(idx2, grad2)`` and ``dxyz2 = grad2 −
+scatter(idx1, grad1)``; no gradient flows through the indices. The scatter
+is deterministic on the card too (:func:`scatter_rows`).
 
 Each direction is one call of :func:`nearest_neighbour`. For CPU tensors it
 runs the plain version :func:`_nn_ref`; for CUDA tensors it launches the
@@ -61,6 +65,43 @@ def nearest_neighbour(a: torch.Tensor, b: torch.Tensor):
     return nn_kernel(a, b)
 
 
+def scatter_rows(idx: torch.Tensor, src: torch.Tensor, n: int) -> torch.Tensor:
+    """``out[b, idx[b, k]] += src[b, k]`` into zeros (B, n, 3), the same bits
+    on every run. idx (B, K) int, src (B, K, 3).
+
+    ``index_add_`` and ``scatter_add_`` on CUDA add with atomics, in an order
+    that changes from run to run. ``index_put_(accumulate=True)`` on CUDA
+    always takes PyTorch's sort-based path instead: a stable sort groups the
+    rows by target and each group is summed in order, with no host sync.
+    """
+    batch = torch.arange(idx.shape[0], device=idx.device)[:, None].expand_as(idx)
+    out = src.new_zeros((idx.shape[0], n, 3))
+    return out.index_put_((batch, idx.long()), src, accumulate=True)
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return x.gather(1, idx.long()[..., None].expand(-1, -1, 3))
+
+
+class _ChamferDistance(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xyz1, xyz2):
+        dist1, idx1 = nearest_neighbour(xyz1, xyz2)
+        dist2, idx2 = nearest_neighbour(xyz2, xyz1)
+        ctx.mark_non_differentiable(idx1, idx2)
+        ctx.save_for_backward(xyz1, xyz2, idx1, idx2)
+        return dist1, dist2, idx1, idx2
+
+    @staticmethod
+    def backward(ctx, g1, g2, _gi1, _gi2):
+        xyz1, xyz2, idx1, idx2 = ctx.saved_tensors
+        grad1 = 2.0 * g1[..., None] * (xyz1 - _gather_rows(xyz2, idx1))
+        grad2 = 2.0 * g2[..., None] * (xyz2 - _gather_rows(xyz1, idx2))
+        dxyz1 = grad1 + scatter_rows(idx2, -grad2, xyz1.shape[1])
+        dxyz2 = grad2 + scatter_rows(idx1, -grad1, xyz2.shape[1])
+        return dxyz1, dxyz2
+
+
 def chamfer_distance(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """Bidirectional chamfer distance.
 
@@ -72,8 +113,4 @@ def chamfer_distance(xyz1: torch.Tensor, xyz2: torch.Tensor):
       ``(dist1, dist2, idx1, idx2)``: (B,N)/(B,M) squared NN distances and
       (B,N)/(B,M) int32 argmin indices.
     """
-    xyz1 = xyz1.float()
-    xyz2 = xyz2.float()
-    dist1, idx1 = nearest_neighbour(xyz1, xyz2)
-    dist2, idx2 = nearest_neighbour(xyz2, xyz1)
-    return dist1, dist2, idx1, idx2
+    return _ChamferDistance.apply(xyz1.float(), xyz2.float())
