@@ -5,8 +5,9 @@
 Builds the hand-written CUDA kernels from ``fenet_torch/csrc`` and drives
 the port's eval path (RepVGG-A2 generator -> batched ICP -> auction EMD +
 chamfer) and its training step (train-mode generator -> 100·CD + 100·EMD ->
-backward -> Adam) at full width with seeded random weights. Each phase
-prints one JSON line; any failure raises, and the script exits non-zero.
+backward -> Adam) at full width with seeded random weights, at 1024 points
+and again at 2048 (phases 4-6 below, run at each). Each phase prints one
+JSON line; any failure raises, and the script exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles every kernel in parallel and prints the build seconds.
@@ -20,11 +21,16 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    (on every element; then also bit-identical to K3) and without the early
    exit: bit-exact. The Sinkhorn
    potentials (K6/K7) at B=128, N=M=1024 and at N=M=2048 and 8192 with a
-   small batch: rtol 1e-4, atol 1e-5.
+   small batch: rtol 1e-4, atol 1e-5. The stream auction (K4) at N = 2048,
+   4096, 8192, 1100 and 5000 on dyadic inputs, bit-exact: fixed eps at the
+   eval and train settings, eps-scaling with the gate open (on every
+   element), closed (on every element; then also the fixed-eps result) and
+   without the early exit; on normal inputs the EMD metric to 1e-2.
 4. eval: evaluate_dataset over SyntheticShapeNet(n_models=6) at batch 64
    with ICP on; the kernels' launch counts must rise by 2 (chamfer) and 1
-   (EMD) per batch. Then, as the reference, each stage of the step against
-   the same stage on the CPU (the plain versions) on identical small inputs.
+   (EMD: K3 at 1024 points, K4 at 2048) per batch. Then, as the reference,
+   each stage of the step against the same stage on the CPU (the plain
+   versions) on identical small inputs.
 5. train: Trainer.train_step at batch 128 over SyntheticShapeNet(variety=
    True) in each EMD mode (auction, eps-scaling auction, Sinkhorn): one
    warm-up step, then three steps on one repeated batch with the counts set
@@ -33,15 +39,18 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    loss, backward and Adam; one step profiled; the chamfer backward twice on
    identical inputs, which must give identical bits; train_net for 2 epochs
    with validation at epoch 2, whose checkpoint must load back with
-   strict=True; and one train step on the card against the same step on the
-   CPU from identical weights.
+   strict=True; and (at 1024 points) one train step on the card against the
+   same step on the CPU from identical weights.
    Each mode also counts the gate's open elements on every step's clouds
    (eps-scaling) and the host syncs of one step (PyTorch's sync debug mode).
 6. timing: each kernel, its plain version and, where one exists, a PyTorch
    library call, timed with CUDA events on the inputs its path gave it;
    bounds from this run's work at the H100's published peaks. On the train
    step's batch-128 clouds K1 (both directions) and K5 must equal their
-   plain versions bit for bit and K6 must agree to rtol 1e-4, atol 1e-5.
+   plain versions bit for bit and K6 must agree to rtol 1e-4, atol 1e-5; at
+   2048 points K4 must equal its plain version on the first 32 train clouds
+   and agree to 1e-2 in the EMD metric on the eval batch, and K7 must agree
+   to rtol 1e-4, atol 1e-5.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -77,6 +86,8 @@ EMD_OPS_PER_PAIR = 11
 # the running sum: 14 float32 operations and one exp per evaluation.
 SINKHORN_OPS_PER_EVAL = 14
 BATCH, N_POINTS = 64, 1024
+# The second point count the reference's --num_points offers.
+WIDE_POINTS = 2048
 MODEL = dict(backbone="RepVGG-A2", fine_width=512, mid_width=128)
 TRAIN_BATCH = 128
 TRAIN_EPOCH = 1
@@ -84,6 +95,14 @@ TRAIN_EPOCH = 1
 # Sinkhorn potentials at (B, N = M, iterations).
 NN_LARGE = (4, 2048, 16384)
 SINKHORN_CASES = ((128, 1024, 300), (4, 2048, 300), (2, 8192, 30))
+# K4 on dyadic clouds at (N, B): B·N² kept at 2^26 or below, so each of the
+# plain version's float32 (B, N, N) tensors stays within 256 MB.
+STREAM_CASES = ((2048, 4), (4096, 2), (8192, 1), (1100, 4), (5000, 1))
+# K4 is held against its plain version on the first elements of the
+# batch-128 train clouds: each element is an independent auction, in the
+# kernel (one CTA each) and in the plain version, whose (B, N, N) tensors
+# through up to 3000 iterations at all 128 elements would take minutes.
+STREAM_TRAIN_CHECK = 32
 # The three EMD modes of TrainConfig and the kernel each one runs.
 TRAIN_MODES = {
     "auction": ({}, "emd_auction"),
@@ -133,10 +152,14 @@ def bound_ms(ops: float, nbytes: float, special: float = 0.0):
 
 
 def launch_counts():
+    """Launches of each kernel: the auction wrapper counts all of its
+    launches and, apart, those of the stream kernel (K4)."""
     from fenet_torch.ops import chamfer, emd, sinkhorn
 
+    stream = emd.auction_kernel.stream_launches
     return {"chamfer_nn": chamfer.nn_kernel.launches,
-            "emd_auction": emd.auction_kernel.launches,
+            "emd_auction": emd.auction_kernel.launches - stream,
+            "emd_auction_stream": stream,
             "sinkhorn": sinkhorn.potentials_kernel.launches}
 
 
@@ -145,7 +168,15 @@ def reset_counts() -> None:
 
     chamfer.nn_kernel.launches = 0
     emd.auction_kernel.launches = 0
+    emd.auction_kernel.stream_launches = 0
     sinkhorn.potentials_kernel.launches = 0
+
+
+def emd_kernel_name(n: int) -> str:
+    """The auction kernel that runs at n points."""
+    from fenet_torch.ops.emd import RESIDENT_MAX_N
+
+    return "emd_auction" if n <= RESIDENT_MAX_N else "emd_auction_stream"
 
 
 def gate_open_elements(x1, x2, scale_thresh: float = 0.3) -> int:
@@ -197,11 +228,9 @@ def host_syncs(fn) -> list:
     return syncs
 
 
-def clouds(kind: str, rng, device):
-    import numpy as np
+def clouds(kind: str, rng, device, shape=(BATCH, N_POINTS, 3)):
     import torch
 
-    shape = (BATCH, N_POINTS, 3)
     if kind == "dyadic":
         x = rng.randint(-64, 65, size=shape) / 64.0
     else:
@@ -326,18 +355,84 @@ def phase_kernels_train(device) -> None:
                                   warmup=0)})
 
 
-def model_name() -> str:
-    return (f"Generator({MODEL['backbone']}, num_points={N_POINTS}, "
+def phase_kernels_stream(device) -> None:
+    """K4 against its plain version at every N of STREAM_CASES. Dyadic
+    clouds, bit for bit: fixed eps at the eval (0.005 / 50) and train
+    (0.05 / 3000) settings; eps-scaling (3 phases, threshold 0.3) with the
+    gate open on every element, closed on every element (then also the
+    fixed-eps result) and open without the early exit. Random normal
+    clouds at the eval settings: the EMD metric to 1e-2 relative."""
+    import numpy as np
+    import torch
+
+    from fenet_torch.ops.emd import _auction_plain, auction_kernel
+
+    rng = np.random.RandomState(3)
+    for n, bsz in STREAM_CASES:
+        x1, x2 = (clouds("dyadic", rng, device, (bsz, n, 3)) for _ in range(2))
+        clustered = torch.round(x1 * 4) / 256  # few distinct points: the gate opens
+        cases = (("eval", x1, 0.005, 50, 1, True), ("train", x1, 0.05, 3000, 1, True),
+                 ("gate open", clustered, 0.05, 3000, 3, True),
+                 ("gate closed", x1, 0.05, 3000, 3, True),
+                 ("gate open, no early exit", clustered, 0.05, 3000, 3, False))
+        results = {}
+        for case, pred, eps, iters, phases, early_exit in cases:
+            args = (pred, x2, eps, iters, phases, early_exit, 0.3 if phases > 1 else 0.0)
+            extra = {}
+            if phases > 1:
+                opened = gate_open_elements(pred, x2)
+                if opened != (0 if case == "gate closed" else bsz):
+                    raise AssertionError(f"emd_auction_stream N={n} ({case}): the gate "
+                                         f"opens on {opened} of {bsz} elements")
+                extra["gate_open_elements"] = opened
+            before = auction_kernel.stream_launches
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            d_k, a_k = auction_kernel(*args)
+            end.record()
+            torch.cuda.synchronize()
+            if auction_kernel.stream_launches != before + 1:
+                raise AssertionError(f"N={n}: the auction did not launch the stream kernel")
+            t0 = time.perf_counter()
+            d_p, a_p = _auction_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if not (torch.equal(d_k, d_p) and torch.equal(a_k, a_p)):
+                raise AssertionError(
+                    f"emd_auction_stream differs from plain at N={n} ({case}): "
+                    f"{float((d_k - d_p).abs().max())}, {float((a_k != a_p).float().mean())}")
+            results[case] = (d_k, a_k)
+            if case == "gate closed" and not all(
+                    torch.equal(a, b) for a, b in zip(results["train"], results[case])):
+                raise AssertionError(f"N={n}, closed gate: not the fixed-eps kernel's result")
+            emit({"phase": "kernels", "kernel": "emd_auction_stream", "inputs": "dyadic",
+                  "B": bsz, "N": n, "case": case, "eps": eps, "iters": iters,
+                  "scale_phases": phases, "early_exit": early_exit, "bit_exact": True, **extra,
+                  "kernel_ms": start.elapsed_time(end), "plain_ms": plain_ms})
+        a, b = (clouds("normal", rng, device, (bsz, n, 3)) for _ in range(2))
+        d_k, a_k = auction_kernel(a, b, 0.005, 50)
+        d_p, a_p = _auction_plain(a, b, 0.005, 50)
+        m_k, m_p = float(d_k.sqrt().mean()), float(d_p.sqrt().mean())
+        if abs(m_k - m_p) > 1e-2 * m_p:
+            raise AssertionError(f"emd_auction_stream metric {m_k} vs plain {m_p} at N={n}")
+        emit({"phase": "kernels", "kernel": "emd_auction_stream", "inputs": "normal", "B": bsz,
+              "N": n, "eps": 0.005, "iters": 50, "metric": m_k, "plain_metric": m_p,
+              "max_abs_dist_err": float((d_k - d_p).abs().max()),
+              "assignment_equal_share": float((a_k == a_p).float().mean())})
+
+
+def model_name(n: int = N_POINTS) -> str:
+    return (f"Generator({MODEL['backbone']}, num_points={n}, "
             f"fine_width={MODEL['fine_width']}, mid_width={MODEL['mid_width']})")
 
 
-def make_model(device, head_scale: float = HEAD_SCALE):
+def make_model(device, head_scale: float = HEAD_SCALE, n: int = N_POINTS):
     import torch
 
     from fenet_torch.models.generator import Generator, init_random_
 
     with torch.device(device):
-        gen = Generator(num_points=N_POINTS, **MODEL)
+        gen = Generator(num_points=n, **MODEL)
     init_random_(gen, torch.Generator(device=device).manual_seed(0))
     with torch.no_grad():
         for layer in (gen.fc3_1, gen.conv2_1, gen.conv1_3):
@@ -346,7 +441,7 @@ def make_model(device, head_scale: float = HEAD_SCALE):
     return gen.eval()
 
 
-def phase_eval(device):
+def phase_eval(device, n: int = N_POINTS):
     import numpy as np
     import torch
 
@@ -356,25 +451,26 @@ def phase_eval(device):
     from fenet_torch.geometry.icp import align_pred_to_gt
     from fenet_torch.ops import chamfer, emd
 
-    gen = make_model(device)
-    ds = SyntheticShapeNet(n_models=6, num_points=N_POINTS, seed=0)
+    gen = make_model(device, n=n)
+    ds = SyntheticShapeNet(n_models=6, num_points=n, seed=0)
     loader = DataLoader(ds, BATCH)
     first = next(iter(loader))
     step = make_eval_step(gen, device=device)
     step(first["image"], first["points"])  # warm-up: cuDNN plans, library loads
     torch.cuda.synchronize()
 
-    chamfer.nn_kernel.launches = 0
-    emd.auction_kernel.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, _, summary = evaluate_dataset(gen, loader, category="synthetic", device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"chamfer_nn": chamfer.nn_kernel.launches,
-                "emd_auction": emd.auction_kernel.launches}
+    launches = launch_counts()
     n_batches = len(loader)
-    if launches != {"chamfer_nn": 2 * n_batches, "emd_auction": n_batches}:
+    want = {"chamfer_nn": 2 * n_batches, "emd_auction": 0, "emd_auction_stream": 0,
+            "sinkhorn": 0}
+    want[emd_kernel_name(n)] = n_batches
+    if launches != want:
         raise AssertionError(f"eval path launched {launches} over {n_batches} batches")
     if summary["samples"] != len(ds) or not all(
             np.isfinite(summary[k]) for k in ("EMD_distance", "ChamferDistance")):
@@ -398,7 +494,7 @@ def phase_eval(device):
         aligned = timed("icp_ms", lambda: align_pred_to_gt(pred, points))
         timed("emd_ms", lambda: emd.earth_mover_distance(aligned, points))
         timed("chamfer_ms", lambda: chamfer.chamfer_distance(aligned, points))
-    emit({"phase": "eval", "model": model_name(), "batch": BATCH, "batches": n_batches,
+    emit({"phase": "eval", "model": model_name(n), "batch": BATCH, "batches": n_batches,
           "samples": summary["samples"], "wall_s": wall,
           "samples_per_s": summary["samples"] / wall,
           "EMD_distance": summary["EMD_distance"],
@@ -447,12 +543,13 @@ def phase_eval(device):
     }
     limits = {"generator_rel_err": 1e-4, "icp_aligned_max_abs_err": 1e-5,
               "icp_residual": 1e-4, "cd_rel_err": 1e-5, "emd_rel_err": 1e-2}
-    emit({"phase": "reference", "card_vs_cpu": checks, "limits": limits})
+    emit({"phase": "reference", "path": f"eval, N={n}", "card_vs_cpu": checks,
+          "limits": limits})
     for key, limit in limits.items():
         if not checks[key] <= limit:
             raise AssertionError(f"card vs CPU {key} = {checks[key]} > {limit}")
     profile_step(lambda: step(first["image"], first["points"]),
-                 f"eval step (batch {BATCH})")
+                 f"eval step (batch {BATCH}, N={n})")
     return launches, aligned.contiguous(), points.contiguous()
 
 
@@ -509,10 +606,11 @@ def split_step(trainer, images, points, lr) -> dict:
     return ms
 
 
-def phase_train(device) -> dict:
-    """The training step in each EMD mode, the chamfer backward's
-    determinism, train_net, and one step on the card against the CPU.
-    Returns each mode's launch counts and the clouds its kernels saw."""
+def phase_train(device, n: int = N_POINTS) -> dict:
+    """The training step at n points in each EMD mode, the chamfer
+    backward's determinism, train_net, and (at 1024 points) one step on the
+    card against the CPU. Returns each mode's launch counts and the clouds
+    its kernels saw."""
     import numpy as np
     import torch
 
@@ -522,9 +620,9 @@ def phase_train(device) -> dict:
     from fenet_torch.train.config import TrainConfig
     from fenet_torch.train.trainer import Trainer, reference_lr_schedule
 
-    gen = make_model(device, head_scale=1.0)
+    gen = make_model(device, head_scale=1.0, n=n)
     init_state = {k: v.clone() for k, v in gen.state_dict().items()}
-    ds = SyntheticShapeNet(n_models=6, num_points=N_POINTS, variety=True, seed=0)
+    ds = SyntheticShapeNet(n_models=6, num_points=n, variety=True, seed=0)
     batch = next(iter(DataLoader(ds, TRAIN_BATCH, shuffle=True, drop_last=True, seed=0)))
     images = batch["image"].astype(np.uint8)  # the reader's uint8 pixels
     points = batch["points"]
@@ -545,8 +643,8 @@ def phase_train(device) -> dict:
             losses.append({k: float(v) for k, v in stats.items()})  # synchronises
             step_ms.append((time.perf_counter() - t0) * 1e3)
         launches = launch_counts()
-        want = {"chamfer_nn": 6, "emd_auction": 0, "sinkhorn": 0}
-        want[kernel] = 3
+        want = {"chamfer_nn": 6, "emd_auction": 0, "emd_auction_stream": 0, "sinkhorn": 0}
+        want[emd_kernel_name(n) if kernel == "emd_auction" else kernel] = 3
         if launches != want:
             raise AssertionError(f"train ({mode}) launched {launches}, not {want}")
         if not all(np.isfinite(v) for step in losses for v in step.values()):
@@ -565,13 +663,13 @@ def phase_train(device) -> dict:
             extra["gate_open_elements_per_step"] = [
                 gate_open_elements(pred, gt) for pred, gt in seen[:4]]
         emit({"phase": "train", "mode": mode, "config": overrides,
-              "model": model_name(), "batch": TRAIN_BATCH, "launches": launches, "losses": losses,
+              "model": model_name(n), "batch": TRAIN_BATCH, "launches": launches, "losses": losses,
               "step_ms": step_ms, "samples_per_s": TRAIN_BATCH * 3e3 / sum(step_ms),
               "split_step_ms": split, "max_memory_allocated_bytes": peak,
               "host_syncs_per_step": syncs, **extra})
         if mode == "auction":
             profile_step(lambda: trainer.train_step(images, points, TRAIN_EPOCH, lr),
-                         f"train step ({mode}, batch {TRAIN_BATCH})")
+                         f"train step ({mode}, batch {TRAIN_BATCH}, N={n})")
         # The recording wrapper refers back to the trainer: drop it, or this
         # trainer and its Adam state outlive the mode.
         del trainer.emd
@@ -584,16 +682,17 @@ def phase_train(device) -> dict:
         grads.append(pred.grad)
     if not torch.equal(grads[0], grads[1]):
         raise AssertionError("chamfer backward differs between two identical runs")
-    emit({"phase": "train", "check": "chamfer backward deterministic", "identical": True,
-          "grad_abs_max": float(grads[0].abs().max())})
-    phase_train_net(device, gen, init_state)
-    phase_train_reference(device, gen, init_state, images[:2], points[:2], lr)
+    emit({"phase": "train", "check": "chamfer backward deterministic", "N": n,
+          "identical": True, "grad_abs_max": float(grads[0].abs().max())})
+    phase_train_net(device, gen, init_state, n)
+    if n == N_POINTS:
+        phase_train_reference(device, gen, init_state, images[:2], points[:2], lr)
     return info
 
 
-def phase_train_net(device, gen, init_state) -> None:
-    """train_net for 2 epochs, validating at epoch 2; its checkpoint must
-    load back with strict=True."""
+def phase_train_net(device, gen, init_state, n: int) -> None:
+    """train_net at n points for 2 epochs, validating at epoch 2; its
+    checkpoint must load back with strict=True."""
     import tempfile
 
     import torch
@@ -606,14 +705,15 @@ def phase_train_net(device, gen, init_state) -> None:
 
     gen.load_state_dict(init_state)
     # 24 views a model: the fewest models that fill one batch an epoch.
-    train_ds = SyntheticShapeNet(n_models=-(-TRAIN_BATCH // 24), num_points=N_POINTS,
+    train_ds = SyntheticShapeNet(n_models=-(-TRAIN_BATCH // 24), num_points=n,
                                  variety=True, seed=0)
-    val_ds = SyntheticShapeNet(n_models=1, num_points=N_POINTS, seed=1)
+    val_ds = SyntheticShapeNet(n_models=1, num_points=n, seed=1)
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        cfg = TrainConfig(batch_size=TRAIN_BATCH, nepoch=2, validate_epochs=(2,),
-                          train_save_freq=0, dir_path=tmp, manual_seed=0)
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, num_points=n, nepoch=2,
+                          validate_epochs=(2,), train_save_freq=0, dir_path=tmp,
+                          manual_seed=0)
         reset_counts()
         t0 = time.perf_counter()
         out = train_net("synthetic", cfg, train_ds, val_ds, model=gen, device=device)
@@ -623,7 +723,9 @@ def phase_train_net(device, gen, init_state) -> None:
         # 2 epochs of training steps, then the validation batches: each runs
         # chamfer (2 launches) and the auction (1).
         steps = 2 * (len(train_ds) // TRAIN_BATCH) + -(-len(val_ds) // TRAIN_BATCH)
-        want = {"chamfer_nn": 2 * steps, "emd_auction": steps, "sinkhorn": 0}
+        want = {"chamfer_nn": 2 * steps, "emd_auction": 0, "emd_auction_stream": 0,
+                "sinkhorn": 0}
+        want[emd_kernel_name(n)] = steps
         if launches != want:
             raise AssertionError(f"train_net launched {launches}, not {want}")
         history = out["history"]
@@ -632,11 +734,11 @@ def phase_train_net(device, gen, init_state) -> None:
         t1 = time.perf_counter()
         blob = load_checkpoint(str(Path(out["ckpt_dir"]) / BEST))
         with torch.device(device):
-            fresh = Generator(num_points=N_POINTS, **MODEL)
+            fresh = Generator(num_points=n, **MODEL)
         fresh.load_state_dict(blob["state_dict"], strict=True)
         if not torch.equal(fresh.fc3_1.weight, gen.fc3_1.weight) or blob["epoch"] != 2:
             raise AssertionError("the checkpoint does not hold the trained weights")
-        emit({"phase": "train_net", "epochs": 2, "wall_s": wall, "launches": launches,
+        emit({"phase": "train_net", "N": n, "epochs": 2, "wall_s": wall, "launches": launches,
               "history": history, "checkpoint_load_s": time.perf_counter() - t1,
               "checkpoint_bytes": (Path(out["ckpt_dir"]) / BEST).stat().st_size,
               "loads_strict": True})
@@ -805,7 +907,7 @@ def phase_timing(launches, pred, gt, train):
                                special=evals)
     k6_row = {
         "name": "sinkhorn", "route": "cuda", "source": "fenet_torch/csrc/sinkhorn.cu",
-        "replaces": "fenet/ops/sinkhorn.py:43 and :114",
+        "replaces": "fenet/ops/sinkhorn.py:43",
         "launches": train["sinkhorn"]["launches"]["sinkhorn"],
         "max_abs_err": max(float((f_k - f_p).abs().max()), float((g_k - g_p).abs().max())),
         "ms": cuda_ms(lambda: potentials_kernel(x, y, 1e-4, iters, 0.25), 5, warmup=1),
@@ -820,6 +922,82 @@ def phase_timing(launches, pred, gt, train):
           "scaled_step1": step1, "scaled_warmup": warmup,
           "sinkhorn_evaluations": evals})
     return [nn_row, emd_row, k5_row, k6_row]
+
+
+def phase_timing_wide(launches, pred, gt, train):
+    """The kernels line's rows at WIDE_POINTS. K4 on the eval path's first
+    batch (aligned predictions vs gt, 0.005 / 50) and on the clouds the
+    default-mode train step handed its loss (0.05 / 3000): on the first
+    STREAM_TRAIN_CHECK elements the row's times, bound and check, bit for
+    bit against the plain version; the kernel is also timed on all 128. K7
+    on the Sinkhorn mode's clouds, to rtol 1e-4 / atol 1e-5."""
+    import torch
+
+    from fenet_torch.ops.emd import _auction_loop, auction_kernel
+    from fenet_torch.ops.sinkhorn import _potentials_plain, potentials_kernel
+
+    def stream_row(name, x1, x2, eps, iters, n_launches, bit_exact):
+        b, n = x1.shape[0], x1.shape[1]
+        d_k, a_k = auction_kernel(x1, x2, eps, iters)
+        t0 = time.perf_counter()
+        d_p, a_p, bid_rows = _auction_loop(x1, x2, eps, iters)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(d_k, d_p) and torch.equal(a_k, a_p)
+        m_k, m_p = float(d_k.sqrt().mean()), float(d_p.sqrt().mean())
+        if (bit_exact and not same) or abs(m_k - m_p) > 1e-2 * m_p:
+            raise AssertionError(
+                f"{name} differs from plain (B={b}, N={n}): {float((d_k - d_p).abs().max())}, "
+                f"{float((a_k != a_p).float().mean())}, metric {m_k} vs {m_p}")
+        bids = int(bid_rows.sum())
+        bound, by = bound_ms(bids * n * EMD_OPS_PER_PAIR, b * n * 12 * 2 + b * n * 8)
+        return {"name": name, "route": "cuda",
+                "source": "fenet_torch/csrc/emd_auction.cu",
+                "replaces": "fenet/ops/emd.py:200 (store_value=False, :228-237, :470)",
+                "launches": n_launches, "max_abs_err": float((d_k - d_p).abs().max()),
+                "ms": cuda_ms(lambda: auction_kernel(x1, x2, eps, iters), 10, warmup=2),
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None}, {"B": b, "bid_rows": bids, "bit_exact": same,
+                                      "assignment_equal_share": float((a_k == a_p).float().mean())}
+
+    eval_row, eval_info = stream_row("emd_auction_stream", pred, gt, 0.005, 50,
+                                     launches["emd_auction_stream"], bit_exact=False)
+    x1, x2 = train["auction"]["pred"], train["auction"]["gt"]
+    train_row, train_info = stream_row(
+        "emd_auction_stream_train", x1[:STREAM_TRAIN_CHECK].contiguous(),
+        x2[:STREAM_TRAIN_CHECK].contiguous(), 0.05, 3000,
+        train["auction"]["launches"]["emd_auction_stream"], bit_exact=True)
+    train_info["full_batch_ms"] = cuda_ms(lambda: auction_kernel(x1, x2, 0.05, 3000), 5,
+                                          warmup=1)
+
+    x, y = train["sinkhorn"]["pred"], train["sinkhorn"]["gt"]
+    b, n, m = x.shape[0], x.shape[1], y.shape[1]
+    iters = 300
+    f_k, g_k = potentials_kernel(x, y, 1e-4, iters, 0.25)
+    t0 = time.perf_counter()
+    f_p, g_p = _potentials_plain(x, y, 1e-4, iters, 0.25)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for got, want in ((f_k, f_p), (g_k, g_p)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    evals = 2 * b * n * m * iters
+    k7_bound, k7_by = bound_ms(evals * SINKHORN_OPS_PER_EVAL, (b * n + b * m) * 16 + iters * 4,
+                               special=evals)
+    k7_row = {
+        "name": "sinkhorn_stream", "route": "cuda", "source": "fenet_torch/csrc/sinkhorn.cu",
+        "replaces": "fenet/ops/sinkhorn.py:114",
+        "launches": train["sinkhorn"]["launches"]["sinkhorn"],
+        "max_abs_err": max(float((f_k - f_p).abs().max()), float((g_k - g_p).abs().max())),
+        "ms": cuda_ms(lambda: potentials_kernel(x, y, 1e-4, iters, 0.25), 2, warmup=1),
+        "plain_ms": plain_ms, "bound_ms": k7_bound, "bound_by": k7_by, "library_ms": None,
+    }
+    emit({"phase": "timing", "N": pred.shape[1],
+          "inputs": f"eval batch 1: aligned pred vs gt, B={pred.shape[0]}; train: the "
+          f"clouds of the first counted step, K4 on the first {STREAM_TRAIN_CHECK} of "
+          f"{TRAIN_BATCH} (full_batch_ms on all), K7 on all",
+          "stream_eval": eval_info, "stream_train": train_info,
+          "sinkhorn_evaluations": evals})
+    return [eval_row, train_row, k7_row]
 
 
 def main() -> int:
@@ -846,14 +1024,19 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": {
-        name: [ln.strip() for ln in rep.splitlines() if "Used" in ln or "spill" in ln]
+        name: [ln.strip() for ln in rep.splitlines()
+               if "entry function" in ln or "Used" in ln or "spill" in ln]
         for name, rep in reports.items()}})
 
     phase_kernels(device)
     phase_kernels_train(device)
+    phase_kernels_stream(device)
     launches, pred, gt = phase_eval(device)
     train = phase_train(device)
     rows = phase_timing(launches, pred, gt, train)
+    launches, pred, gt = phase_eval(device, WIDE_POINTS)
+    train = phase_train(device, WIDE_POINTS)
+    rows += phase_timing_wide(launches, pred, gt, train)
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Auction Earth Mover's Distance: hand-written CUDA kernel + plain PyTorch
-version (counterpart of ``fenet/ops/emd.py``, resident mode, N <= 1024).
+"""Auction Earth Mover's Distance: hand-written CUDA kernels + plain PyTorch
+version (counterpart of ``fenet/ops/emd.py``, N <= 8192).
 
 ``earth_mover_distance(xyz1, xyz2, eps, iters, scale_phases, early_exit,
 scale_thresh) -> (dist, assignment)``: per-point squared matched distances
@@ -25,9 +25,12 @@ ties). When they are skipped the result is the fixed-eps auction's.
 kernel runs every iteration, as the reference driver does. The iterations
 after that point change nothing, so the results are the same either way.
 
-For CPU tensors the wrapper runs the plain version :func:`_auction_plain`;
-for CUDA tensors it launches ``csrc/emd_auction.cu`` (:func:`auction_kernel`)
-or raises.
+For CPU tensors the wrapper runs the plain version :func:`_auction_plain`,
+for any N; for CUDA tensors it launches a kernel of ``csrc/emd_auction.cu``
+(:func:`auction_kernel`): ``emd_auction_kernel`` for N <= 1024,
+``emd_auction_stream_kernel`` for 1024 < N <= 8192, and raises for larger
+N (fenet runs its XLA auction there; the port has no plain fallback on the
+card). Odd N runs as it is: no padding.
 """
 
 from __future__ import annotations
@@ -40,9 +43,12 @@ from fenet_torch.ops import _build
 from fenet_torch.ops.pairwise import pairwise_sqdist, sqnorm
 
 _NEG = -1e9  # "minus infinity" for masked maxima, kept finite as in fenet
-# Rows of one batch element the kernel holds: one CTA of 1024 threads, one
-# thread per row and per column.
-MAX_N = 1024
+# Rows of one batch element emd_auction_kernel holds: one CTA of 1024
+# threads, one thread per row and per column.
+RESIDENT_MAX_N = 1024
+# emd_auction_stream_kernel takes 1024 < N <= MAX_N: 1024 threads own up to
+# 8 rows and columns each.
+MAX_N = 8192
 # Eps-scaling phases the kernel takes (its phase table is a fixed array).
 MAX_PHASES = 8
 SCALE_FACTOR = 5.0
@@ -129,12 +135,15 @@ def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
 def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
                    scale_phases: int = 1, early_exit: bool = True,
                    scale_thresh: float = 0.0):
-    """Launch the CUDA kernel (replaces ``fenet/ops/emd.py:_emd_kernel`` in
-    its resident mode, eps-scaling phases and adaptive gate included).
+    """Launch a CUDA kernel (replaces ``fenet/ops/emd.py:_emd_kernel``,
+    eps-scaling phases and adaptive gate included), from ``emd_auction.cu``:
+    its resident mode for N <= 1024, its streaming mode for 1024 < N <=
+    8192.
 
-    x1, x2 (B,N,3) float32, contiguous, on one CUDA device, N <= 1024 ->
+    x1, x2 (B,N,3) float32, contiguous, on one CUDA device, N <= 8192 ->
     (B,N) float32 squared matched distances, (B,N) int32 assignment.
-    Counts its launches in ``auction_kernel.launches``.
+    Counts every launch in ``auction_kernel.launches`` and those of the
+    streaming kernel also in ``auction_kernel.stream_launches``.
     """
     _build.check_clouds(x1, x2, "emd_auction")
     bsz, n = x1.shape[0], x1.shape[1]
@@ -148,23 +157,32 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
     ass = torch.empty((bsz, n), dtype=torch.int32, device=x1.device)
     eps_table = (ctypes.c_float * scale_phases)(*phase_eps(eps, scale_phases))
     adaptive = scale_phases > 1 and scale_thresh > 0.0
-    fn = _build.library("emd_auction").fenet_emd_auction
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    stream = n > RESIDENT_MAX_N
+    pointers = [x1.data_ptr(), x2.data_ptr(), dist.data_ptr(), ass.data_ptr()]
+    if stream:
+        # The per-column winner keys, cleared by the kernel every iteration.
+        keys = torch.empty((bsz, n), dtype=torch.int64, device=x1.device)
+        pointers.append(keys.data_ptr())
+        fn = _build.library("emd_auction").fenet_emd_auction_stream
+    else:
+        fn = _build.library("emd_auction").fenet_emd_auction
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] + [ctypes.c_int] * 4
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(x1.device):
-        status = fn(x1.data_ptr(), x2.data_ptr(), dist.data_ptr(), ass.data_ptr(),
-                    bsz, n, ctypes.addressof(eps_table), scale_phases, iters,
+        status = fn(*pointers, bsz, n, ctypes.addressof(eps_table), scale_phases, iters,
                     int(early_exit), int(adaptive),
                     gate_threshold(scale_thresh, n) if adaptive else 0.0,
                     torch.cuda.current_stream().cuda_stream)
-    _build.check(status, "emd_auction")
+    _build.check(status, "emd_auction_stream" if stream else "emd_auction")
     auction_kernel.launches += 1
+    auction_kernel.stream_launches += int(stream)
     return dist, ass
 
 
 auction_kernel.launches = 0
+auction_kernel.stream_launches = 0
 
 
 class _EarthMoverDistance(torch.autograd.Function):

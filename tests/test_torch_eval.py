@@ -179,11 +179,19 @@ def test_eval_step_matches_fenet(small):
     np.testing.assert_array_equal(ours.numpy(), np.asarray(emd_sq))
 
 
-def test_evaluate_dataset_matches_fenet(small):
-    model, variables, gen = small
+@pytest.mark.parametrize("num_points", [1024, 1280])
+def test_evaluate_dataset_matches_fenet(small, num_points):
+    """Also at 1280 points, above the 1024 where the port's auction goes to
+    its stream kernel on the card (on the CPU both sides run their plain
+    auctions)."""
+    if num_points == 1024:
+        model, variables, gen = small
+    else:
+        model, variables = _small_variables(num_points)
+        gen = _port_model(variables, num_points)
     indices = [0, NUM_VIEWS, 1, NUM_VIEWS + 1]
-    port_ds = _Take(SyntheticShapeNet(n_models=2, seed=1), indices)
-    jax_ds = _Take(JaxSyntheticShapeNet(n_models=2, seed=1), indices)
+    port_ds = _Take(SyntheticShapeNet(n_models=2, num_points=num_points, seed=1), indices)
+    jax_ds = _Take(JaxSyntheticShapeNet(n_models=2, num_points=num_points, seed=1), indices)
     _, _, want = jax_evaluate_dataset(model, variables, JaxDataLoader(jax_ds, 2),
                                       mesh=make_mesh(1))
     cd_m, emd_m, got = evaluate_dataset(gen, DataLoader(port_ds, 2), device="cpu")

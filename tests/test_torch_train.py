@@ -18,7 +18,9 @@ at stage 0. Its BatchNorms see raw 0..255 pixels through one convolution
 E[x²] - E[x]² is itself up to 1.1e-5 off the float64 value (measured on
 this init): stage 0 is held to fenet at 5e-5. Train steps, as
 ``tests/test_train_parity.py``: losses to rtol 5e-3·(step+1), fc3_1 after
-three Adam steps to rtol 5e-2 / atol 5e-4. In the auction modes the port's
+three Adam steps to rtol 5e-2 / atol 5e-4; the default mode also at 1280
+points, above the 1024 where the port's auction goes to its stream kernel
+on the card (on the CPU both sides run their plain auctions). In the auction modes the port's
 step uses the assignments fenet's auction made on fenet's predictions, as
 that test does: predictions that differ by ~1e-7 let the auction resolve a
 near-tie the other way, and Adam amplifies the changed gradient. Left to its
@@ -28,6 +30,7 @@ within 6.9e-4 but moved fc3_1 1.6e-3 apart; the eps-scaling mode's EMD was
 """
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -47,6 +50,13 @@ EMD_MODES = {
 }
 
 
+def _overrides(mode: str, num_points: int) -> dict:
+    """A case's TrainConfig overrides. Above 1024 points the auction runs 50
+    iterations: fenet's auction on the CPU takes most of the test's time
+    (measured 45 s at 300 iterations and 1280 points, 22 s at 50)."""
+    return dict(EMD_MODES[mode], **({"emd_iters": 50} if num_points > 1024 else {}))
+
+
 def _port_steps(in_path: str, out_path: str) -> None:
     """STEPS train steps of the port's Trainer on the CPU; with recorded
     assignments, the auction's plain version returns those."""
@@ -57,6 +67,7 @@ def _port_steps(in_path: str, out_path: str) -> None:
     from fenet_torch.train.trainer import Trainer
 
     blob = np.load(in_path)
+    num_points = int(blob["num_points"])
     if "assignments" in blob.files:
         recorded = iter(torch.tensor(a, dtype=torch.int32) for a in blob["assignments"])
 
@@ -65,11 +76,11 @@ def _port_steps(in_path: str, out_path: str) -> None:
             return sqnorm(x1 - x2.gather(1, ass.long()[..., None].expand(-1, -1, 3))), ass
 
         emd._auction_plain = replay
-    gen = Generator(num_points=N_POINTS, **SMALL)
+    gen = Generator(num_points=num_points, **SMALL)
     gen.load_state_dict({k[3:]: torch.tensor(blob[k]) for k in blob.files
                          if k.startswith("sd.")}, strict=True)
-    cfg = TrainConfig(batch_size=BATCH, num_points=N_POINTS, **SMALL,
-                      **EMD_MODES[str(blob["mode"])])
+    cfg = TrainConfig(batch_size=BATCH, num_points=num_points, **SMALL,
+                      **_overrides(str(blob["mode"]), num_points))
     trainer = Trainer(gen, cfg, device="cpu")
     losses = []
     for step in range(STEPS):
@@ -126,15 +137,16 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def small():
+@functools.lru_cache(maxsize=None)
+def _small_models(num_points):
     """fenet's small generator and the port's, from the same weights: the
     port's seeded init (torch's default distributions, as the reference
     trains from), converted into fenet's variables."""
-    gen = init_random_(Generator(num_points=N_POINTS, **SMALL), torch.Generator().manual_seed(0))
+    gen = init_random_(Generator(num_points=num_points, **SMALL),
+                       torch.Generator().manual_seed(0))
     state_dict = {k: v.detach().clone() for k, v in gen.state_dict().items()
                   if not k.endswith("num_batches_tracked")}
-    model = JaxGenerator(num_points=N_POINTS, **SMALL)
+    model = JaxGenerator(num_points=num_points, **SMALL)
     init = jax.tree_util.tree_map(np.asarray, init_variables(
         model, np.zeros((1, 128, 128, 3), np.float32), rng=jax.random.PRNGKey(0)))
     converted = torch_state_dict_to_variables(state_dict)
@@ -143,9 +155,14 @@ def small():
     return model, variables, state_dict
 
 
-def _batch(rng):
+@pytest.fixture(scope="module")
+def small():
+    return _small_models(N_POINTS)
+
+
+def _batch(rng, num_points=N_POINTS):
     imgs = (rng.rand(BATCH, 128, 128, 3) * 255).astype(np.float32)
-    pts = (rng.rand(BATCH, N_POINTS, 3) * 0.9).astype(np.float32)
+    pts = (rng.rand(BATCH, num_points, 3) * 0.9).astype(np.float32)
     return imgs, pts
 
 
@@ -197,10 +214,13 @@ def test_train_mode_forward_and_batch_stats_match_fenet(small):
     assert stock_gap > 1e-3
 
 
-@pytest.mark.parametrize("mode", list(EMD_MODES))
-def test_train_steps_match_fenet(small, mode, tmp_path):
-    model, variables, state_dict = small
-    cfg = JaxTrainConfig(batch_size=BATCH, num_points=N_POINTS, **SMALL, **EMD_MODES[mode])
+@pytest.mark.parametrize("mode,num_points", [(m, N_POINTS) for m in EMD_MODES]
+                         + [("auction", 1280)],
+                         ids=list(EMD_MODES) + ["auction-1280"])
+def test_train_steps_match_fenet(mode, num_points, tmp_path):
+    model, variables, state_dict = _small_models(num_points)
+    cfg = JaxTrainConfig(batch_size=BATCH, num_points=num_points, **SMALL,
+                         **_overrides(mode, num_points))
     trainer = JaxTrainer(model, cfg)
     state = trainer.state_from_variables(variables)
     rng = np.random.RandomState(1)
@@ -215,7 +235,7 @@ def test_train_steps_match_fenet(small, mode, tmp_path):
 
     imgs, pts, assignments, want = [], [], [], []
     for _ in range(STEPS):
-        img, pt = _batch(rng)
+        img, pt = _batch(rng, num_points)
         imgs.append(img)
         pts.append(pt)
         img, pt = jnp.asarray(img), jnp.asarray(pt)
@@ -223,7 +243,8 @@ def test_train_steps_match_fenet(small, mode, tmp_path):
         state, stats = trainer.train_step(state, img, pt, 1, lr)
         want.append([float(stats[k]) for k in ("total_loss", "chamfer_loss", "emd_loss")])
     recorded = {} if mode == "sinkhorn" else {"assignments": np.stack(assignments)}
-    np.savez(tmp_path / "in.npz", mode=mode, imgs=np.stack(imgs), pts=np.stack(pts), lr=lr,
+    np.savez(tmp_path / "in.npz", mode=mode, num_points=num_points, imgs=np.stack(imgs),
+             pts=np.stack(pts), lr=lr,
              **recorded, **{f"sd.{k}": v.numpy() for k, v in state_dict.items()})
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     subprocess.run([sys.executable, __file__, str(tmp_path / "in.npz"),
