@@ -44,6 +44,18 @@ def batch_emd_loss(x: torch.Tensor, y: torch.Tensor, blur: float = 0.01,
     return sinkhorn_distance(x, y, blur, iters).mean()
 
 
+def plan_loss(c0: torch.Tensor, c: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """The training loss from a pair of potentials f (B, N), g (B, M): the
+    plan ``pi = exp((f_i + g_j - c0_ij)/eps) / (N·M)`` from the detached cost
+    c0, the per-point cost ``N·sum_j pi_ij·c_ij`` through the cost c (B, N,
+    M), and the batch mean of ``mean_i sqrt(max(cost_i, 0))``."""
+    n, m = c.shape[1], c.shape[2]
+    pi = torch.exp((f[:, :, None] + g[:, None, :] - c0) / eps - math.log(n) - math.log(m))
+    per_point = n * torch.sum(pi * c, dim=2)  # (B, N)
+    return torch.sqrt(per_point.clamp_min(0.0)).mean(dim=1).mean()
+
+
 def sinkhorn_emd_loss(pred: torch.Tensor, gt: torch.Tensor, blur: float = 0.01,
                       iters: int = 300, eps0: float = 0.25) -> torch.Tensor:
     """Auction-compatible training EMD via entropic OT.
@@ -57,14 +69,10 @@ def sinkhorn_emd_loss(pred: torch.Tensor, gt: torch.Tensor, blur: float = 0.01,
     detached cost, and the gradient flows only through the live cost
     matrix ``pairwise_sqdist(pred, gt)``.
     """
-    n, m = pred.shape[1], gt.shape[1]
     eps = blur * blur
     # The anneal must start at or above the target, or eps would grow past
-    # it and the plan below would be exponentiated at the wrong eps.
+    # it and the plan would be exponentiated at the wrong eps.
     eps0 = max(eps0, eps)
     c = pairwise_sqdist(pred, gt)  # live: the only gradient path
-    c0 = c.detach()
     f, g = sinkhorn_potentials(pred, gt, eps, iters, eps0)  # detached
-    pi = torch.exp((f[:, :, None] + g[:, None, :] - c0) / eps - math.log(n) - math.log(m))
-    per_point = n * torch.sum(pi * c, dim=2)  # (B, N)
-    return torch.sqrt(per_point.clamp_min(0.0)).mean(dim=1).mean()
+    return plan_loss(c.detach(), c, f, g, eps)

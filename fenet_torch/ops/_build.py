@@ -34,8 +34,10 @@ SOURCES = {
     "sinkhorn": "sinkhorn.cu",
 }
 
-# No --use_fast_math: the kernels' arithmetic must be IEEE float32 to agree
-# with the plain PyTorch versions bit for bit.
+# No --use_fast_math: the chamfer and auction kernels' arithmetic must be
+# IEEE float32 to agree with their plain PyTorch versions bit for bit. The
+# Sinkhorn kernel, held to fenet's tolerance rather than to bit-exactness,
+# asks for its one approximate instruction (ex2.approx) itself, by intrinsic.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
