@@ -25,7 +25,10 @@ JSON line; any failure raises, and the script exits non-zero.
    4096, 8192, 1100 and 5000 on dyadic inputs, bit-exact: fixed eps at the
    eval and train settings, eps-scaling with the gate open (on every
    element), closed (on every element; then also the fixed-eps result) and
-   without the early exit; on normal inputs the EMD metric to 1e-2.
+   without the early exit; on normal inputs the EMD metric to 1e-2. The
+   auction's square root (branch-free, with a slow path for tiny and
+   non-positive d) against __fsqrt_rn(max(d, 0)) on all 2^32 float bit
+   patterns: no pattern may differ.
 4. eval: evaluate_dataset over SyntheticShapeNet(n_models=6) at batch 64
    with ICP on; the kernels' launch counts must rise by 2 (chamfer) and 1
    (EMD: K3 at 1024 points, K4 at 2048) per batch. Then, as the reference,
@@ -35,7 +38,9 @@ JSON line; any failure raises, and the script exits non-zero.
    True) in each EMD mode (auction, eps-scaling auction, Sinkhorn): one
    warm-up step, then three steps on one repeated batch with the counts set
    to 0: 2 chamfer launches and 1 EMD launch per step, finite losses, the
-   total falling from step 1 to step 3; the step's ms split into forward,
+   total falling from step 1 to step 3; each step's ms on the host clock and
+   between CUDA events around it (the device's timeline, its idle gaps
+   included); the step's ms split into forward,
    loss, backward and Adam; one step profiled; the chamfer backward twice on
    identical inputs, which must give identical bits; train_net for 2 epochs
    with validation at epoch 2, whose checkpoint must load back with
@@ -45,7 +50,10 @@ JSON line; any failure raises, and the script exits non-zero.
    (eps-scaling) and the host syncs of one step (PyTorch's sync debug mode).
 6. timing: each kernel, its plain version and, where one exists, a PyTorch
    library call, timed with CUDA events on the inputs its path gave it;
-   bounds from this run's work at the H100's published peaks. On the train
+   bounds from this run's work at the H100's published peaks (the auction's
+   square roots at the special-function rate; its rows also carry
+   ``bound_per_sm_ms``, the slowest element's pairs at 16 roots a clock on
+   the one SM its CTA holds). On the train
    step's batch-128 clouds K1 (both directions) and K5 must equal their
    plain versions bit for bit and K6 must agree to rtol 1e-4, atol 1e-5; at
    2048 points K4 must equal its plain version on the first 32 train clouds
@@ -78,10 +86,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # arithmetic instruction throughput table), on 132 SMs at the H100 SXM's
 # 1.98 GHz boost clock. The float32 peak above is the same table's 128
 # results per clock per SM.
-PEAK_SFU_PER_S = 16 * 132 * 1.98e9
+SFU_PER_SM_PER_S = 16 * 1.98e9
+PEAK_SFU_PER_S = 132 * SFU_PER_SM_PER_S
 # Float32 operations per pair evaluation: chamfer's (aa + bb) - 2ab with a
-# 3-term dot, max with 0; the auction adds a square root and two
-# subtractions (3 - sqrt(d) - price).
+# 3-term dot, max with 0; the auction adds a square root (one
+# special-function evaluation a pair) and two subtractions (3 - sqrt(d) -
+# price).
 NN_OPS_PER_PAIR = 9
 EMD_OPS_PER_PAIR = 11
 # Sinkhorn: a cost (9), then (pot - c) / e + log_w, the exp's argument and
@@ -158,6 +168,19 @@ def bound_ms(ops: float, nbytes: float, special: float = 0.0):
     t_ops = max(ops / PEAK_FP32_FLOPS, special / PEAK_SFU_PER_S)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def auction_bounds(bid_rows, n: int, gate: bool = False):
+    """(bound_ms, bound_by, bound_per_sm_ms) of an auction whose elements
+    made ``bid_rows`` (B,) row bids at n points, each bid n pair
+    evaluations with one square root each, plus the gate's n² pairs an
+    element: the whole card's bound, and the slowest element's pairs at 16
+    roots a clock on the one SM its CTA runs on."""
+    pairs = bid_rows.double() * n + (n * n if gate else 0)
+    total = float(pairs.sum())
+    b = bid_rows.shape[0]
+    bound, by = bound_ms(total * EMD_OPS_PER_PAIR, b * n * 12 * 2 + b * n * 8, special=total)
+    return bound, by, float(pairs.max()) / SFU_PER_SM_PER_S * 1e3
 
 
 def launch_counts():
@@ -252,7 +275,7 @@ def phase_kernels(device) -> None:
     import torch
 
     from fenet_torch.ops.chamfer import _nn_ref, nn_kernel
-    from fenet_torch.ops.emd import _auction_plain, auction_kernel
+    from fenet_torch.ops.emd import _auction_plain, auction_kernel, root_mismatches
 
     nn_kernel.launches = auction_kernel.launches = 0
     rng = np.random.RandomState(0)
@@ -291,6 +314,13 @@ def phase_kernels(device) -> None:
                   "plain_ms": cuda_ms(lambda: _auction_plain(a, b, eps, iters), 1, warmup=0)})
     emit({"phase": "kernels", "launches": {"chamfer_nn": nn_kernel.launches,
                                            "emd_auction": auction_kernel.launches}})
+    t0 = time.perf_counter()
+    mismatches, lowest = root_mismatches(device)
+    emit({"phase": "kernels", "kernel": "emd_auction", "check": "square root, 2^32 patterns",
+          "mismatches": mismatches, "lowest": lowest, "s": time.perf_counter() - t0})
+    if mismatches:
+        raise AssertionError(f"emd_auction's square root differs from __fsqrt_rn on "
+                             f"{mismatches} bit patterns, the lowest {lowest:#010x}")
 
 
 def phase_kernels_train(device) -> None:
@@ -645,12 +675,16 @@ def phase_train(device, n: int = N_POINTS) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        losses, step_ms = [], []
+        losses, step_ms, step_event_ms = [], [], []
         for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0 = time.perf_counter()
+            start.record()
             stats = trainer.train_step(images, points, TRAIN_EPOCH, lr)
+            end.record()
             losses.append({k: float(v) for k, v in stats.items()})  # synchronises
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_event_ms.append(start.elapsed_time(end))
         launches = launch_counts()
         want = {"chamfer_nn": 6, "emd_auction": 0, "emd_auction_stream": 0, "sinkhorn": 0}
         want[emd_kernel_name(n) if kernel == "emd_auction" else kernel] = 3
@@ -673,7 +707,8 @@ def phase_train(device, n: int = N_POINTS) -> dict:
                 gate_open_elements(pred, gt) for pred, gt in seen[:4]]
         emit({"phase": "train", "mode": mode, "config": overrides,
               "model": model_name(n), "batch": TRAIN_BATCH, "launches": launches, "losses": losses,
-              "step_ms": step_ms, "samples_per_s": TRAIN_BATCH * 3e3 / sum(step_ms),
+              "step_ms": step_ms, "step_event_ms": step_event_ms,
+              "samples_per_s": TRAIN_BATCH * 3e3 / sum(step_ms),
               "split_step_ms": split, "max_memory_allocated_bytes": peak,
               "host_syncs_per_step": syncs, **extra})
         if mode == "auction":
@@ -862,14 +897,15 @@ def phase_timing(launches, pred, gt, train):
     d_k, _ = auction_kernel(pred, gt, 0.005, 50)
     d_p, _, bid_rows = _auction_loop(pred, gt, 0.005, 50)
     bids = int(bid_rows.sum())
-    emd_bound, emd_by = bound_ms(bids * n * EMD_OPS_PER_PAIR, b * n * 12 * 2 + b * n * 8)
+    emd_bound, emd_by, emd_per_sm = auction_bounds(bid_rows, n)
     emd_row = {
         "name": "emd_auction", "route": "cuda", "source": "fenet_torch/csrc/emd_auction.cu",
         "replaces": "fenet/ops/emd.py:200", "launches": launches["emd_auction"],
         "max_abs_err": float((d_k - d_p).abs().max()),
         "ms": cuda_ms(lambda: auction_kernel(pred, gt, 0.005, 50), 50, warmup=5),
         "plain_ms": cuda_ms(lambda: _auction_loop(pred, gt, 0.005, 50), 5),
-        "bound_ms": emd_bound, "bound_by": emd_by, "library_ms": None,
+        "bound_ms": emd_bound, "bound_by": emd_by, "bound_per_sm_ms": emd_per_sm,
+        "library_ms": None,
     }
 
     # K1 on the train step's clouds (batch 128), both directions, against
@@ -900,7 +936,7 @@ def phase_timing(launches, pred, gt, train):
                 f"emd_auction (scaled) differs from plain on the train clouds (B={b}): "
                 f"{float((d_k - d_p).abs().max())}, {float((a_k != a_p).float().mean())}")
         bids = int(bid_rows.sum())
-        bound = bound_ms((bids * n + b * n * n) * EMD_OPS_PER_PAIR, b * n * 12 * 2 + b * n * 8)
+        bound = auction_bounds(bid_rows, n, gate=True)
         return {"gate_open_elements": gate_open_elements(x1, x2), "bid_rows": bids,
                 "max_abs_err": float((d_k - d_p).abs().max()),
                 "ms": cuda_ms(lambda: auction_kernel(*args), 10, warmup=2),
@@ -908,15 +944,16 @@ def phase_timing(launches, pred, gt, train):
 
     step1 = scaled_auction(x1)
     warmup = scaled_auction(train["scaled"]["warmup_pred"])
-    k5_bound, k5_by = step1.pop("bound")
-    warmup["bound_ms"] = warmup.pop("bound")[0]
+    k5_bound, k5_by, k5_per_sm = step1.pop("bound")
+    warmup["bound_ms"], _, warmup["bound_per_sm_ms"] = warmup.pop("bound")
     k5_row = {
         "name": "emd_auction_scaled", "route": "cuda",
         "source": "fenet_torch/csrc/emd_auction.cu",
         "replaces": "fenet/ops/emd.py:200 (scale_phases > 1, :262-281, :401-419)",
         "launches": train["scaled"]["launches"]["emd_auction"],
         "max_abs_err": step1["max_abs_err"], "ms": step1["ms"], "plain_ms": step1["plain_ms"],
-        "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None,
+        "bound_ms": k5_bound, "bound_by": k5_by, "bound_per_sm_ms": k5_per_sm,
+        "library_ms": None,
     }
 
     # K6/K7: the Sinkhorn loss's potentials, eps = blur² = 1e-4, 300 iters,
@@ -977,14 +1014,14 @@ def phase_timing_wide(launches, pred, gt, train):
                 f"{name} differs from plain (B={b}, N={n}): {float((d_k - d_p).abs().max())}, "
                 f"{float((a_k != a_p).float().mean())}, metric {m_k} vs {m_p}")
         bids = int(bid_rows.sum())
-        bound, by = bound_ms(bids * n * EMD_OPS_PER_PAIR, b * n * 12 * 2 + b * n * 8)
+        bound, by, per_sm = auction_bounds(bid_rows, n)
         return {"name": name, "route": "cuda",
                 "source": "fenet_torch/csrc/emd_auction.cu",
                 "replaces": "fenet/ops/emd.py:200 (store_value=False, :228-237, :470)",
                 "launches": n_launches, "max_abs_err": float((d_k - d_p).abs().max()),
                 "ms": cuda_ms(lambda: auction_kernel(x1, x2, eps, iters), 10, warmup=2),
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": None}, {"B": b, "bid_rows": bids, "bit_exact": same,
+                "bound_per_sm_ms": per_sm, "library_ms": None}, {"B": b, "bid_rows": bids, "bit_exact": same,
                                       "assignment_equal_share": float((a_k == a_p).float().mean())}
 
     eval_row, eval_info = stream_row("emd_auction_stream", pred, gt, 0.005, 50,

@@ -26,11 +26,11 @@ kernel runs every iteration, as the reference driver does. The iterations
 after that point change nothing, so the results are the same either way.
 
 For CPU tensors the wrapper runs the plain version :func:`_auction_plain`,
-for any N; for CUDA tensors it launches a kernel of ``csrc/emd_auction.cu``
-(:func:`auction_kernel`): ``emd_auction_kernel`` for N <= 1024,
-``emd_auction_stream_kernel`` for 1024 < N <= 8192, and raises for larger
-N (fenet runs its XLA auction there; the port has no plain fallback on the
-card). Odd N runs as it is: no padding.
+for any N; for CUDA tensors it launches the kernel of
+``csrc/emd_auction.cu`` (:func:`auction_kernel`) for N <= 8192, through its
+resident entry point for N <= 1024 and its streaming one above, and raises
+for larger N (fenet runs its XLA auction there; the port has no plain
+fallback on the card). Odd N runs as it is: no padding.
 """
 
 from __future__ import annotations
@@ -43,12 +43,16 @@ from fenet_torch.ops import _build
 from fenet_torch.ops.pairwise import pairwise_sqdist, sqnorm
 
 _NEG = -1e9  # "minus infinity" for masked maxima, kept finite as in fenet
-# Rows of one batch element emd_auction_kernel holds: one CTA of 1024
-# threads, one thread per row and per column.
+# N of the kernel's resident entry point: one CTA of 1024 threads, one
+# thread per row and per column (K3/K5).
 RESIDENT_MAX_N = 1024
-# emd_auction_stream_kernel takes 1024 < N <= MAX_N: 1024 threads own up to
-# 8 rows and columns each.
+# Its streaming entry point takes 1024 < N <= MAX_N: 1024 threads own up to
+# 8 rows and columns each (K4).
 MAX_N = 8192
+# The kernel keeps its winner keys in shared memory up to this N and in a
+# (B, N) buffer from the wrapper above it (kSharedKeysMaxN in
+# emd_auction.cu, which refuses to launch above it without the buffer).
+SHARED_KEYS_MAX_N = 6400
 # Eps-scaling phases the kernel takes (its phase table is a fixed array).
 MAX_PHASES = 8
 SCALE_FACTOR = 5.0
@@ -65,9 +69,18 @@ def gate_threshold(scale_thresh: float, n: int) -> float:
     return torch.tensor(scale_thresh * n, dtype=torch.float32).item()
 
 
+def _row_bids(bids: torch.Tensor):
+    """Each row's best bid, its column (the first on ties) and the best bid
+    of the other columns, floored at _NEG as fenet masks the best column:
+    (B, N, M) -> three (B, N)."""
+    best, best_col = torch.max(bids, dim=2)
+    second = bids.scatter(2, best_col[..., None], _NEG).amax(dim=2)
+    return best, second, best_col
+
+
 def _auction_loop(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
                   scale_phases: int = 1, early_exit: bool = True,
-                  scale_thresh: float = 0.0):
+                  scale_thresh: float = 0.0, trace: bool = False):
     """The dense masked auction of ``fenet/ops/emd.py:_auction_element``,
     batched over the leading axis, with its eps-scaling phases and gate.
 
@@ -75,6 +88,8 @@ def _auction_loop(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
     bids made over all phases and iterations, the work the auction's data
     asked for. A phase stops once no row of the batch is unassigned, with or
     without ``early_exit``: its remaining iterations would change nothing.
+    With ``trace`` a fourth element lists, for each phase, the bidders of
+    each iteration it ran, (iterations, B) int64; its sum is bid_rows.
     """
     b, n, _ = x1.shape
     value = 3.0 - torch.sqrt(pairwise_sqdist(x1, x2))  # (B, N, N)
@@ -87,8 +102,10 @@ def _auction_loop(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
         hit = torch.zeros((b, n), dtype=torch.int64, device=x1.device)
         hits = hit.scatter_(1, nn_col, 1).sum(dim=1)
         enabled = hits.to(torch.float32) < gate_threshold(scale_thresh, n)
+    bidders = []
     for p, eps_p in enumerate(phase_eps(eps, scale_phases)):
         final = p == scale_phases - 1
+        steps = []
         # A skipped phase's rows start out assigned (to a dummy column): they
         # never bid, so nothing of their element changes.
         ass = torch.full((b, n), -1, dtype=torch.int64, device=x1.device)
@@ -99,15 +116,15 @@ def _auction_loop(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
             if not bool(unass.any()):
                 break
             last = final and it == iters - 1
-            bid_rows += unass.sum(dim=1)
+            count = unass.sum(dim=1)
+            bid_rows += count
+            steps.append(count)
 
-            bids = value - price[:, None, :]
-            best, best_col = torch.max(bids, dim=2)
-            better = bids.scatter(2, best_col[..., None], _NEG).amax(dim=2)
+            best, better, best_col = _row_bids(value - price[:, None, :])
             inc = (best - better) + eps_p
 
             onehot = (rows == best_col[..., None]) & unass[..., None]  # (B, N, N)
-            w = torch.where(onehot, inc[..., None], torch.full_like(bids, _NEG))
+            w = torch.where(onehot, inc[..., None], torch.full_like(value, _NEG))
             winner_inc, winner_row = torch.max(w, dim=1)
             com_col = onehot.any(dim=1)
 
@@ -119,8 +136,10 @@ def _auction_loop(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
                 evicted = (ass >= 0) & com_col.gather(1, ass.clamp_min(0))
                 price = price + torch.where(com_col, winner_inc, torch.zeros_like(price))
             ass = torch.where(commit, best_col, torch.where(evicted, -1, ass))
+        bidders.append(torch.stack(steps) if steps else bid_rows.new_zeros((0, b)))
     matched = x2.gather(1, ass.clamp_min(0)[..., None].expand(-1, -1, 3))
-    return sqnorm(x1 - matched), ass.to(torch.int32), bid_rows
+    out = sqnorm(x1 - matched), ass.to(torch.int32), bid_rows
+    return out + (bidders,) if trace else out
 
 
 def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
@@ -135,15 +154,15 @@ def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
 def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
                    scale_phases: int = 1, early_exit: bool = True,
                    scale_thresh: float = 0.0):
-    """Launch a CUDA kernel (replaces ``fenet/ops/emd.py:_emd_kernel``,
-    eps-scaling phases and adaptive gate included), from ``emd_auction.cu``:
-    its resident mode for N <= 1024, its streaming mode for 1024 < N <=
-    8192.
+    """Launch the CUDA kernel (replaces ``fenet/ops/emd.py:_emd_kernel``,
+    eps-scaling phases and adaptive gate included) of ``emd_auction.cu``:
+    its resident entry point for N <= 1024, its streaming one for 1024 < N
+    <= 8192.
 
     x1, x2 (B,N,3) float32, contiguous, on one CUDA device, N <= 8192 ->
     (B,N) float32 squared matched distances, (B,N) int32 assignment.
     Counts every launch in ``auction_kernel.launches`` and those of the
-    streaming kernel also in ``auction_kernel.stream_launches``.
+    streaming entry point also in ``auction_kernel.stream_launches``.
     """
     _build.check_clouds(x1, x2, "emd_auction")
     bsz, n = x1.shape[0], x1.shape[1]
@@ -160,9 +179,11 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
     stream = n > RESIDENT_MAX_N
     pointers = [x1.data_ptr(), x2.data_ptr(), dist.data_ptr(), ass.data_ptr()]
     if stream:
-        # The per-column winner keys, cleared by the kernel every iteration.
-        keys = torch.empty((bsz, n), dtype=torch.int64, device=x1.device)
-        pointers.append(keys.data_ptr())
+        # The per-column winner keys above SHARED_KEYS_MAX_N, cleared by the
+        # kernel; below it they live in shared memory and the pointer is null.
+        keys = (torch.empty((bsz, n), dtype=torch.int64, device=x1.device)
+                if n > SHARED_KEYS_MAX_N else None)
+        pointers.append(None if keys is None else keys.data_ptr())
         fn = _build.library("emd_auction").fenet_emd_auction_stream
     else:
         fn = _build.library("emd_auction").fenet_emd_auction
@@ -183,6 +204,22 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
 
 auction_kernel.launches = 0
 auction_kernel.stream_launches = 0
+
+
+def root_mismatches(device: torch.device):
+    """Hold the kernel's square root (``root_fast``, with ``__fsqrt_rn(max(d,
+    0))`` outside its range, as the bid scan takes it) against
+    ``__fsqrt_rn(max(d, 0))`` on the card, over all 2^32 float bit patterns:
+    ``(patterns whose bits differ, the lowest of them or None)``."""
+    out = torch.tensor([0, 1 << 32], dtype=torch.int64, device=device)
+    fn = _build.library("emd_auction").fenet_emd_root_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        status = fn(out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "emd_root_check")
+    bad, lowest = out.tolist()
+    return bad, (lowest if bad else None)
 
 
 class _EarthMoverDistance(torch.autograd.Function):

@@ -31,94 +31,25 @@ line (``ok: false``) and makes the exit code 1 after all cases ran.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import subprocess
 import sys
 import time
 import traceback
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from fenet_torch.ops import _build, sinkhorn
+from fenet_torch.tools.devkit import Emitter, build, card, clocks, event_ms, sampler, sources
 
-ROOT = _build._PKG.parent
-OUT = ROOT / "build" / "sinkhorn_dev"
-LOG = ROOT / "chiprun_out" / "sinkhorn_dev.jsonl"
 RTOL, ATOL = 1e-4, 1e-5
 EPS, EPS0 = 1e-4, 0.25
 # chip_smoke.py's model: the train step's clouds come from it.
 MODEL = dict(backbone="RepVGG-A2", fine_width=512, mid_width=128)
 
 
-def emit(obj) -> None:
-    line = json.dumps(obj)
-    print(line, flush=True)
-    with LOG.open("a") as fh:
-        fh.write(line + "\n")
-
-
-def build(libs):
-    """{label: source} -> ({label: ctypes.CDLL}, [labels that failed]), all
-    nvcc at once."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for label, src in libs.items():
-        target = OUT / f"libsinkhorn-{label}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(target), str(src)]
-        procs[label] = (target, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True))
-    loaded, failed = {}, []
-    for label, (target, proc) in procs.items():
-        out, _ = proc.communicate()
-        emit({"build": label, "rc": proc.returncode, "ptxas": [
-            ln.strip() for ln in out.splitlines()
-            if "Used" in ln or "spill" in ln or "error" in ln or "warning" in ln]})
-        if proc.returncode == 0:
-            loaded[label] = ctypes.CDLL(str(target))
-        else:
-            failed.append(label)
-            print(out, file=sys.stderr)
-    return loaded, failed
-
-
 def run(lib, x, y, iters):
     _build._loaded["sinkhorn"] = lib
     return sinkhorn.potentials_kernel(x, y, EPS, iters, EPS0)
-
-
-def event_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def clocks(proc):
-    """Stop an nvidia-smi sampler; (median SM MHz, median W) or None."""
-    proc.terminate()
-    out, _ = proc.communicate(timeout=30)
-    rows = [ln.split(",") for ln in out.splitlines() if ln.count(",") == 1]
-    try:
-        mhz = sorted(float(a) for a, _ in rows)
-        watts = sorted(float(b) for _, b in rows)
-    except ValueError:
-        return None
-    return (mhz[len(mhz) // 2], watts[len(watts) // 2]) if rows else None
-
-
-def sampler():
-    """nvidia-smi printing the SM clock and power draw every 100 ms."""
-    return subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
-         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
 
 
 def worst(got, want):
@@ -170,19 +101,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("sinkhorn_dev: needs a CUDA card", file=sys.stderr)
         return 1
-    LOG.parent.mkdir(exist_ok=True)
+    emit = Emitter("sinkhorn_dev.jsonl")
     device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    emit({"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit({"device": card(), "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    libs = {}
-    for spec in args.source:
-        label, path = spec.split("=", 1)
-        libs[label] = Path(path)
-    libs["new"] = _build.CSRC / _build.SOURCES["sinkhorn"]
     t0 = time.perf_counter()
-    loaded, failed = build(libs)
+    loaded, failed = build(sources(args.source, "sinkhorn"), "sinkhorn", emit)
     emit({"build_s": time.perf_counter() - t0, "failed": failed})
     order = list(loaded) + list(reversed(list(loaded)))
 
