@@ -15,9 +15,10 @@ JSON line; any failure raises, and the script exits non-zero.
    and the fixed-eps auction (K3) at the eval shapes (B=64, N=M=1024):
    bit-exact on dyadic inputs (coordinates k/64, where every product and
    sum is exact); on random normal inputs the chamfer distances agree to
-   1e-5 and the EMD metric to 1e-2 relative. K1 over M = 16384 points (K2's
-   range): bit-exact on dyadic inputs. The eps-scaling auction (K5) at
-   B=64, N=1024 on dyadic inputs, gate open (on every element), gate closed
+   1e-5 and the EMD metric to 1e-2 relative (K1 splits M across blocks
+   there, S > 1). K1 over M = 16384 points (K2's range, S > 1): bit-exact
+   on dyadic inputs, with its device time, S and grid. The eps-scaling
+   auction (K5) at B=64, N=1024 on dyadic inputs, gate open (on every element), gate closed
    (on every element; then also bit-identical to K3) and without the early
    exit: bit-exact. The Sinkhorn
    potentials (K6/K7) at B=128, N=M=1024 and at N=M=2048 and 8192 with a
@@ -54,13 +55,16 @@ JSON line; any failure raises, and the script exits non-zero.
    square roots at the special-function rate; its rows also carry
    ``bound_per_sm_ms``, the slowest element's pairs at 16 roots a clock on
    the one SM its CTA holds). On the train
-   step's batch-128 clouds K1 (both directions) and K5 must equal their
+   step's batch-128 clouds K1 (both directions, at 1024 and 2048 points,
+   with S = 1: one launch and no key buffer) and K5 must equal their
    plain versions bit for bit and K6 must agree to rtol 1e-4, atol 1e-5; at
    2048 points K4 must equal its plain version on the first 32 train clouds
    and agree to 1e-2 in the EMD metric on the eval batch, and K7 must agree
    to rtol 1e-4, atol 1e-5. For K6 and K7 the Sinkhorn loss from their
    potentials must also be within SINKHORN_LOSS_REL_LIMIT of the loss from
-   the plain potentials (``loss_rel_err``).
+   the plain potentials (``loss_rel_err``). K1's time is device time
+   (CUDA-graph replays), beside its FLOP bound and its issue-slot floor
+   (``issue_bound_ms``), on the eval batch and on the train clouds.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -94,6 +98,14 @@ PEAK_SFU_PER_S = 132 * SFU_PER_SM_PER_S
 # price).
 NN_OPS_PER_PAIR = 9
 EMD_OPS_PER_PAIR = 11
+# Issued instructions a second: 128 a clock per SM (four schedulers, 32
+# lanes each) on 132 SMs at 1.98 GHz. PEAK_FP32_FLOPS counts an FMA as two
+# operations, but chamfer's pair is 9 issued instructions (FMUL and two FFMA
+# for the cross term, FADD, FFMA for - 2ab, the clamp, the compare, two
+# selects), only some of them FMAs: its floor is the pairs' issue slots at
+# this rate, twice the FLOP bound.
+ISSUE_SLOTS_PER_S = 132 * 128 * 1.98e9
+NN_ISSUES_PER_PAIR = 9
 # Sinkhorn: a cost (9), then (pot - c) / e + log_w, the exp's argument and
 # the running sum: 14 float32 operations and one exp per evaluation.
 SINKHORN_OPS_PER_EVAL = 14
@@ -168,6 +180,48 @@ def bound_ms(ops: float, nbytes: float, special: float = 0.0):
     t_ops = max(ops / PEAK_FP32_FLOPS, special / PEAK_SFU_PER_S)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nn_device(a, b, inputs: str) -> dict:
+    """K1 on clouds a (B,N,3), b (B,M,3) through the package's wrapper: its
+    slices of M (S) and grid, its device ms (CUDA events around replays of
+    a CUDA graph of 20 launches, so the wrapper's host time is not in it),
+    and its bounds: float32 operations at PEAK_FP32_FLOPS (``bound_ms``)
+    and issued instructions at ISSUE_SLOTS_PER_S (``issue_bound_ms``)."""
+    from fenet_torch.ops import chamfer
+    from fenet_torch.tools.devkit import graph_ms
+
+    bsz, n, m = a.shape[0], a.shape[1], b.shape[1]
+    slices = chamfer.nn_slices(bsz, n, m)
+    pairs = bsz * n * m
+    return {"inputs": inputs, "B": bsz, "N": n, "M": m, "slices": slices,
+            "grid": [-(-n // chamfer.ROWS_PER_BLOCK), bsz, slices],
+            "device_ms": graph_ms(lambda: chamfer.nn_kernel(a, b)),
+            "bound_ms": bound_ms(pairs * NN_OPS_PER_PAIR,
+                                 (bsz * n + bsz * m) * 12 + bsz * n * 8)[0],
+            "issue_bound_ms": pairs * NN_ISSUES_PER_PAIR / ISSUE_SLOTS_PER_S * 1e3}
+
+
+def nn_train_clouds(x1, x2) -> list:
+    """K1 on the train step's clouds, both directions, as the step launches
+    it: one launch each (S = 1, no key buffer), bit for bit against the
+    plain version; each direction's ``nn_device`` numbers."""
+    import torch
+
+    from fenet_torch.ops.chamfer import _nn_ref, nn_kernel, nn_slices
+
+    rows = []
+    for name, a, c in (("pred -> gt", x1, x2), ("gt -> pred", x2, x1)):
+        if nn_slices(a.shape[0], a.shape[1], c.shape[1]) != 1:
+            raise AssertionError(f"chamfer_nn splits M at the train shape {tuple(a.shape)}")
+        d_k, i_k = nn_kernel(a, c)
+        d_p, i_p = _nn_ref(a, c)
+        if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
+            raise AssertionError(
+                f"chamfer_nn differs from plain on the train clouds (B={a.shape[0]}): "
+                f"{float((d_k - d_p).abs().max())}, {float((i_k != i_p).float().mean())}")
+        rows.append(nn_device(a, c, f"train clouds, {name}"))
+    return rows
 
 
 def auction_bounds(bid_rows, n: int, gate: bool = False):
@@ -274,7 +328,7 @@ def phase_kernels(device) -> None:
     import numpy as np
     import torch
 
-    from fenet_torch.ops.chamfer import _nn_ref, nn_kernel
+    from fenet_torch.ops.chamfer import _nn_ref, nn_kernel, nn_slices
     from fenet_torch.ops.emd import _auction_plain, auction_kernel, root_mismatches
 
     nn_kernel.launches = auction_kernel.launches = 0
@@ -291,6 +345,7 @@ def phase_kernels(device) -> None:
         if err > 1e-5:
             raise AssertionError(f"chamfer_nn max |d dist| {err} > 1e-5 on {kind} inputs")
         emit({"phase": "kernels", "kernel": "chamfer_nn", "inputs": kind,
+              "slices": nn_slices(*a.shape[:2], b.shape[1]),
               "max_abs_dist_err": err, "idx_equal_share": same,
               "kernel_ms": cuda_ms(lambda: nn_kernel(a, b), 50),
               "plain_ms": cuda_ms(lambda: _nn_ref(a, b), 10),
@@ -342,13 +397,11 @@ def phase_kernels_train(device) -> None:
     d_p, i_p = _nn_ref(a, b)
     if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
         raise AssertionError(f"chamfer_nn differs from plain at M = {m}")
-    emit({"phase": "kernels", "kernel": "chamfer_nn", "inputs": "dyadic", "B": bsz, "N": n,
-          "M": m, "bit_exact": True,
+    emit({"phase": "kernels", "kernel": "chamfer_nn", "bit_exact": True,
+          **nn_device(a, b, "dyadic, NN_LARGE"),
           "kernel_ms": cuda_ms(lambda: nn_kernel(a, b), 20),
           "plain_ms": cuda_ms(lambda: _nn_ref(a, b), 3),
-          "library_ms": cuda_ms(lambda: torch.cdist(a, b).min(-1), 3),
-          "bound_ms": bound_ms(bsz * n * m * NN_OPS_PER_PAIR, (bsz * n + bsz * m) * 12
-                               + bsz * n * 8)[0]})
+          "library_ms": cuda_ms(lambda: torch.cdist(a, b).min(-1), 3)})
 
     x1, x2 = dyadic(BATCH, N_POINTS, 3), dyadic(BATCH, N_POINTS, 3)
     clustered = torch.round(x1 * 4) / 256  # few distinct points: the gate opens
@@ -884,15 +937,18 @@ def phase_timing(launches, pred, gt, train):
     b, n, m = pred.shape[0], pred.shape[1], gt.shape[1]
     d_k, _ = nn_kernel(pred, gt)
     d_p, _ = _nn_ref(pred, gt)
-    nn_bound, nn_by = bound_ms(b * n * m * NN_OPS_PER_PAIR, (b * n + b * m) * 12 + b * n * 8)
+    nn_by = bound_ms(b * n * m * NN_OPS_PER_PAIR, (b * n + b * m) * 12 + b * n * 8)[1]
+    dev = nn_device(pred, gt, "eval batch 1")
     nn_row = {
         "name": "chamfer_nn", "route": "cuda", "source": "fenet_torch/csrc/chamfer_nn.cu",
         "replaces": "fenet/ops/chamfer.py:75", "launches": launches["chamfer_nn"],
         "max_abs_err": float((d_k - d_p).abs().max()),
-        "ms": cuda_ms(lambda: nn_kernel(pred, gt), 100, warmup=5),
+        "ms": dev["device_ms"],
         "plain_ms": cuda_ms(lambda: _nn_ref(pred, gt), 20),
-        "bound_ms": nn_bound, "bound_by": nn_by,
+        "bound_ms": dev["bound_ms"], "bound_by": nn_by,
         "library_ms": cuda_ms(lambda: torch.cdist(pred, gt).min(-1), 20),
+        "issue_bound_ms": dev["issue_bound_ms"], "slices": dev["slices"],
+        "back_to_back_ms": cuda_ms(lambda: nn_kernel(pred, gt), 100, warmup=5),
     }
     d_k, _ = auction_kernel(pred, gt, 0.005, 50)
     d_p, _, bid_rows = _auction_loop(pred, gt, 0.005, 50)
@@ -910,14 +966,7 @@ def phase_timing(launches, pred, gt, train):
 
     # K1 on the train step's clouds (batch 128), both directions, against
     # its plain version bit for bit: the step's own launches.
-    x1, x2 = train["auction"]["pred"], train["auction"]["gt"]
-    for a, c in ((x1, x2), (x2, x1)):
-        d_k, i_k = nn_kernel(a, c)
-        d_p, i_p = _nn_ref(a, c)
-        if not (torch.equal(d_k, d_p) and torch.equal(i_k, i_p)):
-            raise AssertionError(
-                f"chamfer_nn differs from plain on the train clouds (B={a.shape[0]}): "
-                f"{float((d_k - d_p).abs().max())}, {float((i_k != i_p).float().mean())}")
+    nn_train = nn_train_clouds(train["auction"]["pred"], train["auction"]["gt"])
 
     # K5: the training auction with eps-scaling and the gate, on the clouds
     # of the mode's first counted step, and on the warm-up step's.
@@ -982,7 +1031,7 @@ def phase_timing(launches, pred, gt, train):
           f"N={pred.shape[1]}; train: the batch-{TRAIN_BATCH} clouds of each mode's first "
           f"counted step (K5 also on its warm-up step's)",
           "emd_bid_rows": bids, "emd_eps": 0.005, "emd_iters": 50,
-          "chamfer_nn_train_clouds_bit_exact": True,
+          "chamfer_nn_train_clouds_bit_exact": True, "chamfer_nn_train": nn_train,
           "scaled_step1": step1, "scaled_warmup": warmup,
           "sinkhorn_evaluations": evals})
     return [nn_row, emd_row, k5_row, k6_row]
@@ -1061,6 +1110,7 @@ def phase_timing_wide(launches, pred, gt, train):
           f"clouds of the first counted step, K4 on the first {STREAM_TRAIN_CHECK} of "
           f"{TRAIN_BATCH} (full_batch_ms on all), K7 on all",
           "stream_eval": eval_info, "stream_train": train_info,
+          "chamfer_nn_train": nn_train_clouds(train["auction"]["pred"], train["auction"]["gt"]),
           "sinkhorn_evaluations": evals})
     return [eval_row, train_row, k7_row]
 

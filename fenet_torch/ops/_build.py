@@ -43,6 +43,15 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# C functions whose argument and result types are set once, when their
+# library is loaded, and not on every call: {library: {symbol: (argtypes,
+# restype)}}. Pointers and the stream are c_void_p (a plain int would cut
+# them to 32 bits).
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "chamfer_nn": {"fenet_chamfer_nn_split": ([_PTR] * 5 + [_INT] * 4 + [_PTR], _INT)},
+}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -93,12 +102,24 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
     return reports
 
 
+def bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the types of ``lib``'s functions listed in SIGNATURES[name]; a
+    function the library lacks (an earlier source, built by a development
+    tool) is skipped. ctypes keeps each function object on the library, so
+    the types stay set."""
+    for symbol, (argtypes, restype) in SIGNATURES.get(name, {}).items():
+        fn = getattr(lib, symbol, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(_target(name)))
+        lib = _loaded[name] = bind(name, ctypes.CDLL(str(_target(name))))
     return lib
 
 

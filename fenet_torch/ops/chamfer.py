@@ -17,8 +17,6 @@ kernel in ``csrc/chamfer_nn.cu`` (:func:`nn_kernel`) or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from fenet_torch.ops import _build
@@ -32,23 +30,50 @@ def _nn_ref(a: torch.Tensor, b: torch.Tensor):
     return dist, idx.to(torch.int32)
 
 
-def nn_kernel(a: torch.Tensor, b: torch.Tensor):
-    """Launch the CUDA kernel (replaces ``fenet/ops/chamfer.py:_nn_kernel``).
+# The kernel's shape (csrc/chamfer_nn.cu: kRowsPerBlock, kTile; the library
+# exports both) and the card's SMs (an H100 has 132).
+ROWS_PER_BLOCK = 512
+TILE = 256
+SMS = 132
+# Blocks that a split grid aims at: a few on each SM, so that each of its
+# schedulers has warps to switch between.
+BLOCKS_TARGET = 4 * SMS
+
+
+def nn_slices(bsz: int, n: int, m: int, rows: int = ROWS_PER_BLOCK, tile: int = TILE,
+              target: int = BLOCKS_TARGET) -> int:
+    """S, the slices of M that the kernel scans in separate blocks: 1 where
+    the row blocks, ``bsz·⌈n/rows⌉``, give every SM one; else enough for
+    about ``target`` blocks, at most one tile a slice."""
+    row_blocks = bsz * -(-n // rows)
+    if row_blocks >= SMS:
+        return 1
+    return min(-(-m // tile), -(-target // row_blocks))
+
+
+def nn_kernel(a: torch.Tensor, b: torch.Tensor, slices: int | None = None):
+    """Launch the CUDA kernel (replaces ``fenet/ops/chamfer.py:_nn_kernel``
+    and ``:_nn_stream_kernel``).
 
     a (B,N,3), b (B,M,3) float32, contiguous, on one CUDA device ->
-    (B,N) float32 min squared distances, (B,N) int32 first argmins.
-    Counts its launches in ``nn_kernel.launches``.
+    (B,N) float32 min squared distances, (B,N) int32 first argmins. M is
+    scanned in ``slices`` parts (default :func:`nn_slices`); above 1 the
+    parts merge through a scratch buffer of 64-bit keys. Counts its launches
+    in ``nn_kernel.launches``.
     """
     _build.check_clouds(a, b, "chamfer_nn")
     bsz, n, m = a.shape[0], a.shape[1], b.shape[1]
+    if slices is None:
+        slices = nn_slices(bsz, n, m)
     dist = torch.empty((bsz, n), dtype=torch.float32, device=a.device)
     idx = torch.empty((bsz, n), dtype=torch.int32, device=a.device)
-    fn = _build.library("chamfer_nn").fenet_chamfer_nn
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    scratch = (torch.empty(bsz * n * 12, dtype=torch.uint8, device=a.device)
+               if slices > 1 else None)
+    fn = _build.library("chamfer_nn").fenet_chamfer_nn_split
     with torch.cuda.device(a.device):
         status = fn(a.data_ptr(), b.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-                    bsz, n, m, torch.cuda.current_stream().cuda_stream)
+                    None if scratch is None else scratch.data_ptr(), bsz, n, m, slices,
+                    torch.cuda.current_stream().cuda_stream)
     _build.check(status, "chamfer_nn")
     nn_kernel.launches += 1
     return dist, idx

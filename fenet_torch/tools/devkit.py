@@ -56,7 +56,7 @@ def build(libs, name: str, emit):
             ln.strip() for ln in out.splitlines()
             if "Used" in ln or "spill" in ln or "error" in ln or "warning" in ln]})
         if proc.returncode == 0:
-            loaded[label] = ctypes.CDLL(str(target))
+            loaded[label] = _build.bind(name, ctypes.CDLL(str(target)))
         else:
             failed.append(label)
             print(out, file=sys.stderr)
@@ -76,6 +76,31 @@ def event_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 10) -> float:
+    """Device ms of one call of ``fn``: CUDA events around ``reps`` replays
+    of a CUDA graph that holds ``launches`` calls, so that the host's cost
+    of a call (argument checks, allocation, the ctypes call) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * launches)
 
 
 def sampler():
