@@ -4,10 +4,12 @@
 
 Builds the hand-written CUDA kernels from ``fenet_torch/csrc`` and drives
 the port's eval path (RepVGG-A2 generator -> batched ICP -> auction EMD +
-chamfer) and its training step (train-mode generator -> 100·CD + 100·EMD ->
-backward -> Adam) at full width with seeded random weights, at 1024 points
-and again at 2048 (phases 4-6 below, run at each). Each phase prints one
-JSON line; any failure raises, and the script exits non-zero.
+chamfer), its training step (train-mode generator -> 100·CD + 100·EMD ->
+backward -> Adam), its finetune step (the same plus 100·BCE of the
+projected silhouettes) and its Pix3D evaluation at full width with seeded
+random weights, at 1024 points and again at 2048 (phases 4-6 below, run at
+each; the Pix3D phase at 1024). Each phase prints one JSON line; any
+failure raises, and the script exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles every kernel in parallel and prints the build seconds.
@@ -49,6 +51,19 @@ JSON line; any failure raises, and the script exits non-zero.
    same step on the CPU from identical weights.
    Each mode also counts the gate's open elements on every step's clouds
    (eps-scaling) and the host syncs of one step (PyTorch's sync debug mode).
+   finetune: Trainer(loss_mode="finetune") on the same batch from the
+   unscaled init, one warm-up step and three counted ones (2 chamfer
+   launches and 1 auction launch a step, finite losses), timed and split
+   (forward, CD, EMD, projection + BCE, backward, Adam), its peak memory,
+   host syncs and profile, and one step with proj_squash. finetune_net (at
+   1024 points): train_net(loss_mode="finetune") resumes from train_net's
+   epoch-2 checkpoint for one epoch. At 1024 points also one finetune step
+   on the card against the CPU (BCE and CD losses 1e-5, EMD 1e-2, fc3_1's
+   gradient 1e-2 relative L2).
+   pix3d (at 1024 points): a synthetic Pix3D tree under build/, the eval
+   init saved for the three mapped ShapeNet ids, eval_pix3d's entry point on
+   the card: 2 chamfer launches and 1 auction launch a batch, finite
+   metrics, samples/s, and the generator, ICP and EMD ms of a first batch.
 6. timing: each kernel, its plain version and, where one exists, a PyTorch
    library call, timed with CUDA events on the inputs its path gave it;
    bounds from this run's work at the H100's published peaks (the auction's
@@ -66,13 +81,15 @@ JSON line; any failure raises, and the script exits non-zero.
    (CUDA-graph replays), beside its FLOP bound and its issue-slot floor
    (``issue_bound_ms``), on the eval batch and on the train clouds.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with every kernel's numbers
+(K1, K3 and K4 also with their launches in the finetune, finetune_net and
+pix3d phases); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -115,6 +132,11 @@ WIDE_POINTS = 2048
 MODEL = dict(backbone="RepVGG-A2", fine_width=512, mid_width=128)
 TRAIN_BATCH = 128
 TRAIN_EPOCH = 1
+# The finetune CLI's learning rate.
+FINETUNE_LR = 5e-5
+# Samples a category in the Pix3D phase's synthetic tree: a full batch of
+# 32 and a partial one.
+PIX3D_SAMPLES = 36
 # Kernel checks beyond the eval shapes: K1 at K2's range (B, N, M), and the
 # Sinkhorn potentials at (B, N = M, iterations).
 NN_LARGE = (4, 2048, 16384)
@@ -312,6 +334,19 @@ def host_syncs(fn) -> list:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return syncs
+
+
+def timed_ms(phases: dict, name: str, fn):
+    """Call ``fn`` between two synchronisations and record its host-clock
+    ms in ``phases[name]``; returns its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    phases[name] = (time.perf_counter() - t) * 1e3
+    return out
 
 
 def clouds(kind: str, rng, device, shape=(BATCH, N_POINTS, 3)):
@@ -572,14 +607,7 @@ def phase_eval(device, n: int = N_POINTS):
     images = torch.as_tensor(first["image"]).to(device)
     points = torch.as_tensor(first["points"]).to(device)
     phases = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        phases[name] = (time.perf_counter() - t) * 1e3
-        return out
+    timed = functools.partial(timed_ms, phases)
 
     with torch.inference_mode():
         pred = timed("generator_ms", lambda: gen(images)[2])
@@ -645,6 +673,83 @@ def phase_eval(device, n: int = N_POINTS):
     return launches, aligned.contiguous(), points.contiguous()
 
 
+def phase_pix3d(device) -> dict:
+    """eval_pix3d through its CLI entry on a synthetic Pix3D tree under
+    build/ (PIX3D_SAMPLES a category, three categories), with the eval
+    init saved as model_best.pth.tar for the three mapped ShapeNet ids: the
+    counts set to 0 around it, 2 chamfer launches and 1 auction launch a
+    batch; then the data (read and decoded in this thread), generator, ICP
+    and EMD ms of one category's first batch. Returns the launch counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fenet_torch.cli import eval_pix3d
+    from fenet_torch.data.loader import DataLoader
+    from fenet_torch.data.pix3d import Pix3DDataset
+    from fenet_torch.data.synthetic import write_synthetic_pix3d
+    from fenet_torch.geometry.icp import align_pred_to_gt
+    from fenet_torch.ops import emd
+
+    root = ROOT / "build" / "chip_smoke_pix3d"
+    shutil.rmtree(root, ignore_errors=True)
+    cats = tuple(eval_pix3d.PIX3D_TO_SHAPENET)
+    write_synthetic_pix3d(str(root / "pix3d"), cats=cats, samples_per_cat=PIX3D_SAMPLES,
+                          num_points=N_POINTS)
+    gen = make_model(device, n=N_POINTS).to(device)
+    first = None
+    for cat_id in eval_pix3d.PIX3D_TO_SHAPENET.values():
+        path = root / "out" / cat_id / "checkpoints" / "model_best.pth.tar"
+        path.parent.mkdir(parents=True)
+        if first is None:
+            torch.save({"state_dict": gen.state_dict()}, path)
+            first = path
+        else:
+            path.symlink_to(first)
+    args = ["--device", "cuda", "--num_points", str(N_POINTS), "--cats", *cats,
+            "--backbone", MODEL["backbone"], "--fine_width", str(MODEL["fine_width"]),
+            "--mid_width", str(MODEL["mid_width"]), "--data_dir", str(root / "pix3d"),
+            "--model", str(root / "out" / "%s" / "checkpoints")]
+    reset_counts()
+    t0 = time.perf_counter()
+    results = eval_pix3d.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    batches = len(cats) * -(-PIX3D_SAMPLES // 32)  # the CLI's --batchSize 32
+    want = {"chamfer_nn": 2 * batches, "emd_auction": batches, "emd_auction_stream": 0,
+            "sinkhorn": 0}
+    if launches != want:
+        raise AssertionError(f"eval_pix3d launched {launches}, not {want}")
+    for cat, summary in results.items():
+        if summary["samples"] != PIX3D_SAMPLES or not all(
+                np.isfinite(summary[k]) for k in ("EMD_distance", "ChamferDistance")):
+            raise AssertionError(f"eval_pix3d summary for {cat} is wrong: {summary}")
+
+    phases = {}
+    timed = functools.partial(timed_ms, phases)
+    loader = DataLoader(Pix3DDataset(str(root / "pix3d"), category=cats[0], num_points=N_POINTS),
+                        32, prefetch=0)
+    batch = timed("data_ms", lambda: next(iter(loader)))
+    images = torch.as_tensor(batch["image"]).to(device)
+    points = torch.as_tensor(batch["points"]).to(device)
+
+    with torch.inference_mode():
+        pred = timed("generator_ms", lambda: gen(images)[2])
+        aligned = timed("icp_ms", lambda: align_pred_to_gt(pred, points))
+        timed("emd_ms", lambda: emd.earth_mover_distance(aligned, points))
+    samples = sum(r["samples"] for r in results.values())
+    emit({"phase": "pix3d", "model": model_name(N_POINTS), "cats": list(cats), "batch": 32,
+          "samples": samples, "wall_s": wall, "samples_per_s": samples / wall,
+          "cli_samples_per_s": {c: r["samples_per_second"] for c, r in results.items()},
+          "launches": launches, "first_batch_phase_ms": phases,
+          "summary": {c: {k: r[k] for k in ("EMD_distance", "ChamferDistance", "samples")}
+                      for c, r in results.items()}})
+    shutil.rmtree(root)
+    return launches
+
+
 def record_emd_inputs(trainer) -> list:
     """Make ``trainer`` record the (pred, gt) clouds of every EMD loss call,
     detached and contiguous, as its kernel takes them."""
@@ -659,9 +764,33 @@ def record_emd_inputs(trainer) -> list:
     return seen
 
 
+def counted_steps(trainer, images, points, lr):
+    """Three train steps with the counts set to 0 and the peak memory reset
+    before them: each step's losses, its ms on the host clock and between
+    CUDA events around it (the device's timeline, idle gaps included), and
+    the launch counts of the three."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms, step_event_ms = [], [], []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        stats = trainer.train_step(images, points, TRAIN_EPOCH, lr)
+        end.record()
+        losses.append({k: float(v) for k, v in stats.items()})  # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_event_ms.append(start.elapsed_time(end))
+    return losses, step_ms, step_event_ms, launch_counts()
+
+
 def split_step(trainer, images, points, lr) -> dict:
     """One train step in its parts, each timed by the host clock around
-    synchronised work: what Trainer.train_step does, piece by piece."""
+    synchronised work: what Trainer.train_step does, piece by piece (in the
+    finetune mode also the projection and its BCE)."""
     import torch
 
     from fenet_torch.losses.facade import chamfer_loss
@@ -690,7 +819,11 @@ def split_step(trainer, images, points, lr) -> dict:
     mark("chamfer_loss_ms")
     emd = trainer.emd(pred, points)
     mark("emd_loss_ms")
-    total = trainer.config.lambda_cd * cd + trainer.config.lambda_emd * emd
+    cfg = trainer.config
+    total = cfg.lambda_cd * cd + cfg.lambda_emd * emd
+    if trainer.loss_mode == "finetune":
+        total = total + cfg.lambda_bce * trainer.bce(pred, points)
+        mark("projection_bce_ms")
     total.backward()
     mark("backward_ms")
     trainer.optimizer.step()
@@ -725,20 +858,7 @@ def phase_train(device, n: int = N_POINTS) -> dict:
         trainer = Trainer(gen, TrainConfig(batch_size=TRAIN_BATCH, **overrides), device=device)
         seen = record_emd_inputs(trainer)
         trainer.train_step(images, points, TRAIN_EPOCH, lr)  # warm-up: cuDNN plans
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        losses, step_ms, step_event_ms = [], [], []
-        for _ in range(3):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0 = time.perf_counter()
-            start.record()
-            stats = trainer.train_step(images, points, TRAIN_EPOCH, lr)
-            end.record()
-            losses.append({k: float(v) for k, v in stats.items()})  # synchronises
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            step_event_ms.append(start.elapsed_time(end))
-        launches = launch_counts()
+        losses, step_ms, step_event_ms, launches = counted_steps(trainer, images, points, lr)
         want = {"chamfer_nn": 6, "emd_auction": 0, "emd_auction_stream": 0, "sinkhorn": 0}
         want[emd_kernel_name(n) if kernel == "emd_auction" else kernel] = 3
         if launches != want:
@@ -771,6 +891,9 @@ def phase_train(device, n: int = N_POINTS) -> dict:
         # trainer and its Adam state outlive the mode.
         del trainer.emd
 
+    # The last mode's trainer holds its Adam state (~1.4 GB at full width):
+    # drop it, or it counts in the finetune phase's peak memory.
+    del trainer
     # The chamfer backward is a deterministic scatter: identical bits twice.
     grads = []
     for _ in range(2):
@@ -781,15 +904,71 @@ def phase_train(device, n: int = N_POINTS) -> dict:
         raise AssertionError("chamfer backward differs between two identical runs")
     emit({"phase": "train", "check": "chamfer backward deterministic", "N": n,
           "identical": True, "grad_abs_max": float(grads[0].abs().max())})
-    phase_train_net(device, gen, init_state, n)
+    info["finetune"] = phase_finetune(device, gen, init_state, images, points, n)
+    info["finetune_net"] = phase_train_net(device, gen, init_state, n)
     if n == N_POINTS:
         phase_train_reference(device, gen, init_state, images[:2], points[:2], lr)
+        phase_train_reference(device, gen, init_state, images[:2], points[:2],
+                              reference_lr_schedule(FINETUNE_LR, 1), finetune=True)
     return info
 
 
-def phase_train_net(device, gen, init_state, n: int) -> None:
+def phase_finetune(device, gen, init_state, images, points, n: int) -> dict:
+    """The finetune step (100·BCE + 100·CD + 100·EMD, fenet's raw splat) at
+    n points on the train phase's batch of 128, from the unscaled init: one
+    warm-up step, three steps with the counts set to 0 (2 chamfer launches
+    and 1 auction launch a step, finite losses), their ms on the host clock
+    and between CUDA events, the step's split, peak memory, the host syncs
+    of one step, one profiled step, and one step with ``proj_squash``.
+    Returns the three steps' launch counts."""
+    import numpy as np
+    import torch
+
+    from fenet_torch.train.config import TrainConfig
+    from fenet_torch.train.trainer import Trainer, reference_lr_schedule
+
+    lr = reference_lr_schedule(FINETUNE_LR, 1)
+    gen.load_state_dict(init_state)
+    trainer = Trainer(gen, TrainConfig(batch_size=TRAIN_BATCH, lr=FINETUNE_LR),
+                      loss_mode="finetune", device=device)
+    trainer.train_step(images, points, TRAIN_EPOCH, lr)  # warm-up
+    losses, step_ms, step_event_ms, launches = counted_steps(trainer, images, points, lr)
+    want = {"chamfer_nn": 6, "emd_auction": 0, "emd_auction_stream": 0, "sinkhorn": 0}
+    want[emd_kernel_name(n)] = 3
+    if launches != want:
+        raise AssertionError(f"finetune launched {launches}, not {want}")
+    peak = torch.cuda.max_memory_allocated()
+    split = split_step(trainer, images, points, lr)
+    syncs = host_syncs(lambda: trainer.train_step(images, points, TRAIN_EPOCH, lr))
+    profile_step(lambda: trainer.train_step(images, points, TRAIN_EPOCH, lr),
+                 f"finetune step (batch {TRAIN_BATCH}, N={n})")
+    gen.load_state_dict(init_state)
+    squashed = Trainer(gen, TrainConfig(batch_size=TRAIN_BATCH, lr=FINETUNE_LR,
+                                        proj_squash=True), loss_mode="finetune", device=device)
+    t0 = time.perf_counter()
+    squash_losses = {k: float(v) for k, v in
+                     squashed.train_step(images, points, TRAIN_EPOCH, lr).items()}
+    squash_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.isfinite(v) for step in losses + [squash_losses] for v in step.values()):
+        raise AssertionError(f"finetune losses are not finite: {losses}, {squash_losses}")
+    cfg = trainer.config
+    emit({"phase": "finetune", "model": model_name(n), "batch": TRAIN_BATCH, "lr": lr,
+          "grid": [cfg.grid_h, cfg.grid_w], "sigma_sq": cfg.sigma_sq, "launches": launches,
+          "launches_per_step": {k: v / 3 for k, v in launches.items() if v},
+          "losses": losses, "step_ms": step_ms, "step_event_ms": step_event_ms,
+          "samples_per_s": TRAIN_BATCH * 3e3 / sum(step_ms), "split_step_ms": split,
+          "max_memory_allocated_bytes": peak, "host_syncs_per_step": syncs,
+          "proj_squash_step": {"losses": squash_losses, "step_ms": squash_ms}})
+    return launches
+
+
+def phase_train_net(device, gen, init_state, n: int):
     """train_net at n points for 2 epochs, validating at epoch 2; its
-    checkpoint must load back with strict=True."""
+    checkpoint must load back with strict=True. At N_POINTS, then
+    train_net(loss_mode="finetune") resumes from that checkpoint for one
+    epoch before the checkpoint is deleted; returns its launch counts."""
+    import dataclasses
+    import math
     import tempfile
 
     import torch
@@ -839,11 +1018,43 @@ def phase_train_net(device, gen, init_state, n: int) -> None:
               "history": history, "checkpoint_load_s": time.perf_counter() - t1,
               "checkpoint_bytes": (Path(out["ckpt_dir"]) / BEST).stat().st_size,
               "loads_strict": True})
+        if n != N_POINTS:
+            return None
+        # The finetune resumes from this checkpoint (epoch 2) for one epoch:
+        # --nepoch 3 at the finetune CLI's LR, no validation.
+        trained = fresh.fc3_1.weight.detach().clone()
+        del blob, fresh
+        cfg = dataclasses.replace(cfg, resume=True, nepoch=3, lr=FINETUNE_LR,
+                                  validate_epochs=())
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_net("synthetic", cfg, train_ds, val_ds, loss_mode="finetune", model=gen,
+                        device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        steps = len(train_ds) // TRAIN_BATCH
+        want = {"chamfer_nn": 2 * steps, "emd_auction": steps, "emd_auction_stream": 0,
+                "sinkhorn": 0}
+        if launches != want:
+            raise AssertionError(f"finetune train_net launched {launches}, not {want}")
+        history = out["history"]
+        if [h["epoch"] for h in history] != [3] or not all(
+                math.isfinite(history[0][k]) for k in ("chamfer_loss", "emd_loss")):
+            raise AssertionError(f"finetune train_net history is wrong: {history}")
+        if torch.equal(gen.fc3_1.weight, trained):
+            raise AssertionError("the finetune epoch did not move the weights")
+        emit({"phase": "finetune_net", "N": n, "resumed_from_epoch": 2, "epochs": [3],
+              "wall_s": wall, "launches": launches, "history": history})
+        return launches
 
 
-def phase_train_reference(device, gen, init_state, images, points, lr) -> None:
-    """One train step (default mode) on the card against the same step on
-    the CPU, from identical weights, at full width on a batch of 2."""
+def phase_train_reference(device, gen, init_state, images, points, lr,
+                          finetune: bool = False) -> None:
+    """One train step (default mode, or with ``finetune`` the finetune
+    step) on the card against the same step on the CPU, from identical
+    weights, at full width on a batch of 2. The finetune step's BCE term is
+    read from the trainer's own call."""
     import copy
 
     import torch
@@ -854,27 +1065,41 @@ def phase_train_reference(device, gen, init_state, images, points, lr) -> None:
     gen.load_state_dict(init_state)
     cpu_gen = copy.deepcopy(gen).cpu()
     cfg = TrainConfig(batch_size=len(images))
-    card = Trainer(gen, cfg, device=device).train_step(images, points, TRAIN_EPOCH, lr)
-    t0 = time.perf_counter()
-    host = Trainer(cpu_gen, cfg, device="cpu").train_step(images, points, TRAIN_EPOCH, lr)
-    cpu_s = time.perf_counter() - t0
+    mode = "finetune" if finetune else "schedule"
+    stats = []
+    for model, dev in ((gen, device), (cpu_gen, torch.device("cpu"))):
+        trainer = Trainer(model, cfg, loss_mode=mode, device=dev)
+        seen = {}
+
+        def recording(pred, pts, bce=trainer.bce, seen=seen):
+            value = bce(pred, pts)
+            seen["bce"] = value.detach()
+            return value
+
+        trainer.bce = recording
+        t0 = time.perf_counter()
+        seen.update(trainer.train_step(images, points, TRAIN_EPOCH, lr))
+        seen["s"] = time.perf_counter() - t0
+        stats.append(seen)
+    card, host = stats
     g_card, g_host = gen.fc3_1.weight.grad.cpu(), cpu_gen.fc3_1.weight.grad
-    checks = {
-        "cd_rel_err": abs(float(card["chamfer_loss"]) - float(host["chamfer_loss"]))
-        / float(host["chamfer_loss"]),
-        "emd_rel_err": abs(float(card["emd_loss"]) - float(host["emd_loss"]))
-        / float(host["emd_loss"]),
-        "fc3_1_grad_rel_err": float((g_card - g_host).norm() / g_host.norm()),
-    }
+    rel = lambda key: abs(float(card[key]) - float(host[key])) / abs(float(host[key]))
+    checks = {"cd_rel_err": rel("chamfer_loss"), "emd_rel_err": rel("emd_loss"),
+              "fc3_1_grad_rel_err": float((g_card - g_host).norm() / g_host.norm())}
     # CD as in eval. EMD as in eval: the auction may resolve a near-tie the
     # other way on predictions that differ by ~1e-6. The gradient of fc3_1
     # (relative L2) carries that: a few flipped rows of 2048 move it ~1e-3.
     limits = {"cd_rel_err": 1e-5, "emd_rel_err": 1e-2, "fc3_1_grad_rel_err": 1e-2}
-    emit({"phase": "reference", "path": "train step, batch 2", "card_vs_cpu": checks,
-          "limits": limits, "cpu_step_s": cpu_s})
+    extra = {}
+    if finetune:
+        checks["bce_rel_err"] = rel("bce")
+        limits["bce_rel_err"] = 1e-5
+        extra = {"bce": float(host["bce"])}
+    emit({"phase": "reference", "path": f"{mode} step, batch 2", "card_vs_cpu": checks,
+          "limits": limits, "cpu_step_s": host["s"], **extra})
     for key, limit in limits.items():
         if not checks[key] <= limit:
-            raise AssertionError(f"train step card vs CPU {key} = {checks[key]} > {limit}")
+            raise AssertionError(f"{mode} step card vs CPU {key} = {checks[key]} > {limit}")
 
 
 def sinkhorn_loss_gap(x, y, kernel, plain) -> float:
@@ -1149,9 +1374,18 @@ def main() -> int:
     launches, pred, gt = phase_eval(device)
     train = phase_train(device)
     rows = phase_timing(launches, pred, gt, train)
+    pix3d = phase_pix3d(device)
     launches, pred, gt = phase_eval(device, WIDE_POINTS)
-    train = phase_train(device, WIDE_POINTS)
-    rows += phase_timing_wide(launches, pred, gt, train)
+    train_wide = phase_train(device, WIDE_POINTS)
+    rows += phase_timing_wide(launches, pred, gt, train_wide)
+    # The launches of the finetune, finetune_net and pix3d phases, beside
+    # each kernel's main-path count.
+    new_paths = {"finetune": train["finetune"], "finetune_wide": train_wide["finetune"],
+                 "finetune_net": train["finetune_net"], "pix3d": pix3d}
+    for row in rows:
+        if row["name"] in ("chamfer_nn", "emd_auction", "emd_auction_stream"):
+            row["launches_new_paths"] = {path: counts[row["name"]]
+                                         for path, counts in new_paths.items()}
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""Synthetic ShapeNet-shaped data for tests and the card smoke run
-(counterpart of ``fenet/data/synthetic.py``): the same seeds give the same
-arrays as the JAX package's generator.
+"""Synthetic ShapeNet- and Pix3D-shaped data for tests and the card smoke
+run (counterpart of ``fenet/data/synthetic.py``): the same seeds give the
+same arrays and files as the JAX package's generator.
 """
 
 from __future__ import annotations
@@ -103,3 +103,47 @@ def write_synthetic_shapenet(root: str, cats: Sequence[str] = ("02691156",),
         with open(os.path.join(sdir, name), "w") as f:
             json.dump(splits, f)
     return splits
+
+
+def write_synthetic_pix3d(root: str, cats: Sequence[str] = ("chair",), samples_per_cat: int = 2,
+                          num_points: int = 1024, seed: int = 0) -> List[dict]:
+    """Write a Pix3D-layout tree:
+
+    {root}/pix3d.json                      entry list
+    {root}/img/{cat}/NNNN.png              image
+    {root}/mask/{cat}/NNNN.png             binary object mask (0/1)
+    {root}/model/{cat}/{name}/model.obj    (path recorded only)
+    {root}/pointclouds/model/{cat}/{name}/pcl_{N}.npy
+
+    Returns the pix3d.json entry list. Needs OpenCV.
+    """
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    entries = []
+    for cat in cats:
+        for s in range(samples_per_cat):
+            name = f"synth_{cat}_{s:04d}"
+            img_rel = f"img/{cat}/{s:04d}.png"
+            mask_rel = f"mask/{cat}/{s:04d}.png"
+            model_rel = f"model/{cat}/{name}/model.obj"
+            h, w = int(rng.randint(160, 320)), int(rng.randint(160, 320))
+            img = rng.randint(0, 255, (h, w, 3), np.uint8)
+            mask = np.zeros((h, w, 3), np.uint8)
+            x0, y0 = int(rng.randint(0, w // 4)), int(rng.randint(0, h // 4))
+            x1 = int(rng.randint(3 * w // 4, w))
+            y1 = int(rng.randint(3 * h // 4, h))
+            mask[y0:y1, x0:x1] = 1
+            for rel, arr in ((img_rel, img), (mask_rel, mask)):
+                path = os.path.join(root, rel)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                cv2.imwrite(path, arr)
+            pcl_path = os.path.join(root, "pointclouds", "model", cat, name,
+                                    f"pcl_{num_points}.npy")
+            os.makedirs(os.path.dirname(pcl_path), exist_ok=True)
+            np.save(pcl_path, _random_cloud(rng, num_points))
+            entries.append({"category": cat, "img": img_rel, "mask": mask_rel,
+                            "model": model_rel, "bbox": [x0, y0, x1, y1]})
+    with open(os.path.join(root, "pix3d.json"), "w") as f:
+        json.dump(entries, f)
+    return entries

@@ -70,7 +70,7 @@ class TrainConfig:
     eval_emd_iters: int = 50
     eval_emd_eps: float = 0.005
 
-    # finetune projection loss (the finetune slice; not ported yet)
+    # finetune projection loss (loss_mode='finetune')
     grid_h: int = 64
     grid_w: int = 64
     sigma_sq: float = 2.0

@@ -114,7 +114,14 @@ def _restored_best(blob, key: str, name: str) -> Optional[Metrics]:
 def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
               loss_mode: str = "schedule", model: Optional[Generator] = None,
               device=None) -> Dict:
-    """Train one category end to end on ``device`` (default: the card).
+    """Train one category end to end on ``device`` (default: the card), in
+    ``loss_mode`` "schedule" (train) or "finetune".
+
+    The epochs run are ``start_epoch + 1 .. cfg.nepoch``; with ``cfg.resume``
+    ``start_epoch`` is the checkpoint's epoch, as in fenet. So a finetune
+    resumed from a checkpoint of epoch E runs no epoch unless ``cfg.nepoch``
+    exceeds E, and its LR is ``reference_lr_schedule(cfg.lr, epoch)`` at
+    those epochs.
 
     Returns ``{"history", "ckpt_dir", "trainer", "model"}``.
     """

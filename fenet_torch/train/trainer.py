@@ -1,5 +1,5 @@
-"""The training step on one device (counterpart of ``fenet/train/trainer.py``,
-``schedule`` loss mode).
+"""The training step on one device (counterpart of ``fenet/train/trainer.py``)
+in its two loss modes, ``schedule`` (train) and ``finetune``.
 
 Reference semantics kept:
 - ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8, weight_decay)``, L2
@@ -11,9 +11,15 @@ Reference semantics kept:
   the optimizer's param groups at every step;
 - train-mode BatchNorm with fenet's running-statistics update.
 
+``loss_mode="finetune"`` is the reference's finetune objective,
+lambda_bce·BCE + lambda_cd·CD + lambda_emd·EMD with no epoch schedule: the
+``bce_prob`` loss between the predicted and GT silhouettes of
+``project_silhouettes`` at az = el = 0, differentiable through the
+prediction as in fenet.
+
 The EMD term is the auction (fixed eps, or eps-scaling phases with the
-adaptive gate) or, with ``emd_impl="sinkhorn"``, the Sinkhorn loss. Options
-of later slices raise: ``loss_mode="finetune"`` and multi-device runs.
+adaptive gate) or, with ``emd_impl="sinkhorn"``, the Sinkhorn loss.
+Multi-device runs are a later slice and raise.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from fenet_torch.geometry.projection import project_silhouettes
 from fenet_torch.losses.facade import chamfer_loss, emd_loss
+from fenet_torch.losses.projection import get_loss_proj
 from fenet_torch.losses.sinkhorn import sinkhorn_emd_loss
 from fenet_torch.train.config import TrainConfig
 from fenet_torch.utils.average_meter import AverageMeter
@@ -62,10 +70,8 @@ class Trainer:
 
     def __init__(self, model: nn.Module, config: TrainConfig,
                  loss_mode: str = "schedule", device="cuda"):
-        if loss_mode != "schedule":
-            raise NotImplementedError(
-                f"loss_mode={loss_mode!r} is not ported to fenet_torch yet "
-                "(only 'schedule')")
+        if loss_mode not in ("schedule", "finetune"):
+            raise ValueError(f"loss_mode must be 'schedule' or 'finetune', got {loss_mode!r}")
         if config.data_parallel > 1 or config.model_parallel > 1:
             raise NotImplementedError(
                 "fenet_torch trains on one device so far: data_parallel and "
@@ -74,6 +80,7 @@ class Trainer:
         if config.emd_impl not in ("auction", "sinkhorn"):
             raise ValueError(f"emd_impl must be 'auction' or 'sinkhorn', got {config.emd_impl!r}")
         self.config = config
+        self.loss_mode = loss_mode
         self.device = resolve_device(device)
         full_fp32()
         self.model = model.to(self.device)
@@ -87,13 +94,24 @@ class Trainer:
         return emd_loss(pred, points, cfg.emd_eps, cfg.emd_iters, cfg.emd_scale_phases,
                         cfg.emd_early_exit, cfg.emd_scale_thresh)
 
+    def bce(self, pred: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+        """The finetune loss's silhouette term: ``bce_prob`` between the
+        projections of the prediction and of the GT."""
+        cfg = self.config
+        proj_pred, proj_gt = project_silhouettes(pred, points, cfg.grid_h, cfg.grid_w,
+                                                 cfg.sigma_sq, squash=cfg.proj_squash)
+        return get_loss_proj(proj_pred, proj_gt, "bce_prob")[0]
+
     def loss(self, pred: torch.Tensor, points: torch.Tensor, epoch: int
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The scheduled total and its parts, for a prediction (B, N, 3)."""
+        """The loss mode's total and its parts, for a prediction (B, N, 3)."""
         cfg = self.config
         cd = chamfer_loss(pred, points)
         emd = self.emd(pred, points)
-        if epoch > 30:
+        if self.loss_mode == "finetune":
+            total = (cfg.lambda_bce * self.bce(pred, points) + cfg.lambda_cd * cd
+                     + cfg.lambda_emd * emd)
+        elif epoch > 30:
             total = cfg.lambda_emd * emd
         else:
             total = cfg.lambda_cd * cd + cfg.lambda_emd * emd

@@ -37,7 +37,7 @@ from fenet.models.generator import init_variables
 from fenet.ops.emd import earth_mover_distance as jax_emd
 from fenet.parallel.mesh import make_mesh
 from fenet.train.checkpoint import export_torch_checkpoint
-from fenet_torch.cli import eval_shapenet
+from fenet_torch.cli import eval_pix3d, eval_shapenet
 from fenet_torch.data.loader import DataLoader
 from fenet_torch.data.shapenet import NUM_VIEWS, ShapeNetDataset, load_split
 from fenet_torch.data.synthetic import SyntheticShapeNet, write_synthetic_shapenet
@@ -47,6 +47,8 @@ from fenet_torch.geometry import icp
 from fenet_torch.models.convert import state_dict_from_jax
 from fenet_torch.models.generator import Generator
 from fenet_torch.ops.emd import earth_mover_distance
+from fenet_torch.train.config import TrainConfig
+from fenet_torch.train.trainer import Trainer
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(backbone="RepVGG-TEST", fine_width=32, mid_width=16)
@@ -284,7 +286,16 @@ def test_port_imports_no_jax():
     assert int(out.stdout.split()[-1]) >= 20
 
 
-def test_default_device_raises_without_a_card(monkeypatch):
+def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
+    """The eval step, the finetune trainer and the eval_pix3d entry run on
+    the card unless asked for the CPU; eval_pix3d raises before it reads
+    anything."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    gen = Generator(num_points=256, **SMALL)
     with pytest.raises(RuntimeError, match="cuda"):
-        make_eval_step(Generator(num_points=256, **SMALL))
+        make_eval_step(gen)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(gen, TrainConfig(), loss_mode="finetune")
+    with pytest.raises(RuntimeError, match="cuda"):
+        eval_pix3d.main(["--data_dir", str(tmp_path / "absent"),
+                         "--model", str(tmp_path / "absent" / "%s")])

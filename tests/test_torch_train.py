@@ -58,7 +58,8 @@ def _overrides(mode: str, num_points: int) -> dict:
 
 
 def _port_steps(in_path: str, out_path: str) -> None:
-    """STEPS train steps of the port's Trainer on the CPU; with recorded
+    """STEPS train steps of the port's Trainer on the CPU, in the input's
+    loss mode ("schedule" unless it names "finetune"); with recorded
     assignments, the auction's plain version returns those."""
     from fenet_torch.models.generator import Generator
     from fenet_torch.ops import emd
@@ -81,7 +82,10 @@ def _port_steps(in_path: str, out_path: str) -> None:
                          if k.startswith("sd.")}, strict=True)
     cfg = TrainConfig(batch_size=BATCH, num_points=num_points, **SMALL,
                       **_overrides(str(blob["mode"]), num_points))
-    trainer = Trainer(gen, cfg, device="cpu")
+    loss_mode = str(blob["loss_mode"]) if "loss_mode" in blob.files else "schedule"
+    if loss_mode == "finetune":
+        cfg.proj_squash = bool(blob["proj_squash"])
+    trainer = Trainer(gen, cfg, loss_mode=loss_mode, device="cpu")
     losses = []
     for step in range(STEPS):
         stats = trainer.train_step(blob["imgs"][step], blob["pts"][step], 1, float(blob["lr"]))
@@ -99,6 +103,8 @@ import pytest  # noqa: E402
 from torch import nn  # noqa: E402
 
 from fenet.cli import common as jax_common  # noqa: E402
+from fenet.cli import eval_pix3d as jax_eval_pix3d  # noqa: E402
+from fenet.cli import finetune as jax_finetune  # noqa: E402
 from fenet.models.convert import (  # noqa: E402
     load_torch_checkpoint,
     merge_variables,
@@ -111,7 +117,7 @@ from fenet.train.config import TrainConfig as JaxTrainConfig  # noqa: E402
 from fenet.train.trainer import Trainer as JaxTrainer  # noqa: E402
 from fenet.train.trainer import reference_lr_schedule as jax_lr_schedule  # noqa: E402
 from fenet.utils.average_meter import AverageMeter as JaxAverageMeter  # noqa: E402
-from fenet_torch.cli import common  # noqa: E402
+from fenet_torch.cli import common, eval_pix3d, finetune  # noqa: E402
 from fenet_torch.data.synthetic import write_synthetic_shapenet  # noqa: E402
 from fenet_torch.models.convert import load_reference_checkpoint, state_dict_from_jax  # noqa: E402
 from fenet_torch.models.generator import Generator, init_random_  # noqa: E402
@@ -281,6 +287,36 @@ def test_cli_flags_match_fenet():
     diff = {f.name for f in dataclasses.fields(mine)
             if getattr(mine, f.name) != getattr(ref, f.name)}
     assert diff == {"ckpt_format"}
+    # The finetune and eval_pix3d CLIs: fenet's flags and defaults, plus
+    # --device (and the checkpoint container's default, as above).
+    for ours, theirs, differ in ((finetune.main, jax_finetune.main, {"ckpt_format"}),
+                                 (eval_pix3d.main, jax_eval_pix3d.main, set())):
+        ours, theirs = _cli_defaults(ours), _cli_defaults(theirs)
+        assert set(ours) - set(theirs) == {"device"} and set(theirs) <= set(ours)
+        assert {k for k in theirs if ours[k] != theirs[k]} == differ
+    assert _cli_defaults(finetune.main)["nepoch"] == 10
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _cli_defaults(main) -> dict:
+    """The namespace ``main([])`` parses, stopping right after parsing."""
+    import argparse
+    from unittest import mock
+
+    parse = argparse.ArgumentParser.parse_args
+    seen = {}
+
+    def capture(parser, args=None, namespace=None):
+        seen.update(vars(parse(parser, args, namespace)))
+        raise _Parsed
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", capture):
+        with pytest.raises(_Parsed):
+            main([])
+    return seen
 
 
 def test_average_meter_matches_fenet():
@@ -296,8 +332,8 @@ def test_average_meter_matches_fenet():
 
 def test_options_of_later_slices_raise(tmp_path, monkeypatch):
     gen = Generator(num_points=N_POINTS, **SMALL)
-    with pytest.raises(NotImplementedError, match="finetune"):
-        Trainer(gen, TrainConfig(), loss_mode="finetune", device="cpu")
+    with pytest.raises(ValueError, match="loss_mode"):
+        Trainer(gen, TrainConfig(), loss_mode="pretrain", device="cpu")
     for field in ("data_parallel", "model_parallel"):
         with pytest.raises(NotImplementedError, match="one device"):
             Trainer(gen, TrainConfig(**{field: 2}), device="cpu")
