@@ -6,9 +6,10 @@ Builds the hand-written CUDA kernels from ``fenet_torch/csrc`` and drives
 the port's eval path (RepVGG-A2 generator -> batched ICP -> auction EMD +
 chamfer), its training step (train-mode generator -> 100·CD + 100·EMD ->
 backward -> Adam), its finetune step (the same plus 100·BCE of the
-projected silhouettes) and its Pix3D evaluation at full width with seeded
+projected silhouettes), its Pix3D evaluation and its serving path (deploy
+fold, export_deploy, the HTTP server, predict) at full width with seeded
 random weights, at 1024 points and again at 2048 (phases 4-6 below, run at
-each; the Pix3D phase at 1024). Each phase prints one JSON line; any
+each; the Pix3D and serving phases at 1024). Each phase prints one JSON line; any
 failure raises, and the script exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
@@ -80,10 +81,29 @@ failure raises, and the script exits non-zero.
    the plain potentials (``loss_rel_err``). K1's time is device time
    (CUDA-graph replays), beside its FLOP bound and its issue-slot floor
    (``issue_bound_ms``), on the eval batch and on the train clouds.
+7. deploy (at 1024 points, after pix3d): the eval init with seeded random
+   BN statistics folded by to_deploy in float32 and bf16. Asserted: the
+   float32 fold against the branched eval forward within FOLD_REL_LIMIT of
+   max|ref|, bf16 against float32 within BF16_REL_LIMIT, the float32 fold
+   on the card against the CPU at batch 2 within 1e-4. The branched
+   forward and both folds' CUDA-event ms and images/s at DEPLOY_BATCHES,
+   and the peak memory.
+8. serve: those weights as a .pth.tar under build/ (deleted after);
+   export_deploy in both formats and both dtypes (sizes, export and load
+   seconds; each .pt2 within ARTIFACT_REL_LIMIT of its module); the HTTP
+   server on the bf16 artifact at max_batch 32 and a 5 ms window, driven
+   by 64 client threads (a process of their own) with 1024 PNG renders in
+   all (requests/s, p50 and p99 latency, the mean batch fill, the
+   forwards' CUDA-event ms over the wall); /stats must read 1024 served and 0 errors the moment the last
+   reply is in. Then the predict CLI over 64 PNGs at --batchSize 32
+   (images/s); one PLY read back must equal its image's forward row. The
+   serving path launches none of the kernels, and each of these runs
+   asserts so with the counts set to 0 before it.
 
 The line before the last is one JSON object with every kernel's numbers
 (K1, K3 and K4 also with their launches in the finetune, finetune_net and
-pix3d phases); the last line is ``{"ok": true, "device": {...}}``.
+pix3d phases; every kernel with its launches on the serving paths, 0); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -91,9 +111,11 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -102,6 +124,8 @@ ROOT = Path(__file__).resolve().parent
 # cores and HBM3 bandwidth, at a 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# Dense bf16 on the tensor cores (the same data sheet), for the bf16 fold.
+PEAK_BF16_FLOPS = 989e12
 # Special-function results (exp2, log2, reciprocal, ...) per second: 16 per
 # clock per SM at compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput table), on 132 SMs at the H100 SXM's
@@ -162,6 +186,23 @@ TRAIN_MODES = {
     "scaled": ({"emd_scale_phases": 3, "emd_scale_thresh": 0.3}, "emd_auction"),
     "sinkhorn": ({"emd_impl": "sinkhorn"}, "sinkhorn"),
 }
+# The serving phases: the deploy forward is timed at these batches; the
+# server takes SERVE_REQUESTS PNG requests from SERVE_CLIENTS client threads
+# at SERVE_MAX_BATCH and a SERVE_WINDOW_MS window; predict runs over
+# PREDICT_IMAGES PNGs at --batchSize SERVE_MAX_BATCH.
+DEPLOY_BATCHES = (1, 32, 64)
+SERVE_MAX_BATCH = 32
+SERVE_WINDOW_MS = 5.0
+SERVE_CLIENTS = 64
+SERVE_REQUESTS = 1024
+PREDICT_IMAGES = 64
+# Limits: the float32 fold against the branched forward, of max|ref|
+# (fenet's tests/test_deploy.py); the bf16 fold against the float32 fold
+# (fenet's tests/test_extras.py); the artifact against the module it was
+# exported from.
+FOLD_REL_LIMIT = 1e-3
+BF16_REL_LIMIT = 0.05
+ARTIFACT_REL_LIMIT = 1e-6
 # The untrained prediction is ~30x the gt's scale; scaling the three output
 # heads brings it to the gt's, as a trained model's is. Training starts from
 # the unscaled init, as the reference does: Adam's first steps move every
@@ -1146,6 +1187,323 @@ def profile_step(step, path: str) -> None:
           "top_kernels_ms": [[name[:90], ms, count] for name, ms, count in top]})
 
 
+def randomize_bn_(model, seed: int):
+    """Seeded random BN affine parameters and running statistics (on the
+    model's device), so that the deploy fold is not the identity."""
+    import torch
+
+    g = torch.Generator(device=model.fc1.weight.device).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.3, 0.3, generator=g)
+                m.running_mean.normal_(0.0, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+    return model
+
+
+def rel_err(got, ref) -> float:
+    """max|got - ref| / max|ref|, in float32."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def assert_no_launches(path: str) -> dict:
+    """The counts since the last reset_counts(): the serving path runs none
+    of the kernels (its forward is the generator alone)."""
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the {path} path launched {launches}")
+    return launches
+
+
+def phase_deploy(device):
+    """to_deploy of the eval init with random BN statistics, in float32 and
+    bf16: the fold against the branched forward, bf16 against float32, the
+    float32 fold on the card against the CPU; then each forward's CUDA-event
+    ms, images/s and bound at DEPLOY_BATCHES. Returns (branched model,
+    launches)."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from fenet_torch.models.generator import to_deploy
+    from fenet_torch.utils.device import full_fp32
+
+    full_fp32()
+    gen = randomize_bn_(make_model(device, n=N_POINTS).to(device), 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    phases = {}
+    dep32 = timed_ms(phases, "fold_float32_ms", lambda: to_deploy(gen))
+    dep16 = timed_ms(phases, "fold_bfloat16_ms", lambda: to_deploy(gen, torch.bfloat16))
+    rng = np.random.RandomState(3)
+    images = torch.tensor(rng.randint(0, 256, (max(DEPLOY_BATCHES), 128, 128, 3)),
+                          dtype=torch.uint8, device=device)
+    with torch.inference_mode():
+        branched = gen(images)[2]
+        folded = dep32(images)[2]
+        folded16 = dep16(images)[2]
+        host = copy.deepcopy(dep32).cpu()(images[:2].cpu())[2]
+    if folded16.dtype != torch.bfloat16 or not torch.isfinite(folded16).all():
+        raise AssertionError(f"the bf16 fold gave {folded16.dtype}, finite "
+                             f"{bool(torch.isfinite(folded16).all())}")
+    checks = {"fold_rel_err": rel_err(folded, branched),
+              "bf16_rel_err": rel_err(folded16, folded),
+              "card_vs_cpu_rel_err": rel_err(folded[:2].cpu(), host)}
+    limits = {"fold_rel_err": FOLD_REL_LIMIT, "bf16_rel_err": BF16_REL_LIMIT,
+              "card_vs_cpu_rel_err": 1e-4}
+
+    # Bounds: the forward's convolution and matmul FLOPs (PyTorch's FLOP
+    # counter, an image) at the float32 peak (TF32 off) or the bf16 tensor
+    # core peak, or its weights read once at the memory rate.
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        dep32(images[:1])
+    flops = counter.get_total_flops()
+    timing = {}
+    for name, model, peak in (("branched", gen, PEAK_FP32_FLOPS),
+                              ("float32_fold", dep32, PEAK_FP32_FLOPS),
+                              ("bfloat16_fold", dep16, PEAK_BF16_FLOPS)):
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        for b in DEPLOY_BATCHES:
+            x = images[:b]
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: model(x), reps=20, warmup=3)
+            t_ops, t_bytes = flops * b / peak, (weight_bytes + x.numel()) / PEAK_BYTES_PER_S
+            timing[f"{name}_b{b}"] = {"ms": ms, "images_per_s": b / ms * 1e3,
+                                      "bound_ms": max(t_ops, t_bytes) * 1e3,
+                                      "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    launches = assert_no_launches("deploy")
+    emit({"phase": "deploy", "model": model_name(N_POINTS), "checks": checks, "limits": limits,
+          "fold_ms": phases, "gflop_per_image": flops / 1e9, "forward": timing,
+          "launches": launches,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "pred_abs_max": float(folded.abs().max())})
+    for key, limit in limits.items():
+        if not checks[key] <= limit:
+            raise AssertionError(f"deploy {key} = {checks[key]} > {limit}")
+    return gen, launches
+
+
+def serve_clients(url: str, paths: list, clients: int, per_client: int, n_points: int):
+    """``clients`` threads, each POSTing ``per_client`` of the PNG files
+    ``paths`` (in turn) to ``url`` and checking each reply's cloud. Runs in
+    a process of its own, so the clients do not take the server's GIL.
+    Returns (latencies in s, wall s, bad reply shapes, failures)."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    bodies = [Path(p).read_bytes() for p in paths]
+    latencies, bad, failures = [], [], []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            for k in range(per_client):
+                body = bodies[(c * per_client + k) % len(bodies)]
+                t = time.perf_counter()
+                with urllib.request.urlopen(urllib.request.Request(url, data=body),
+                                            timeout=120) as r:
+                    pts = np.asarray(json.load(r)["points"], np.float32)
+                dt = time.perf_counter() - t
+                with lock:
+                    latencies.append(dt)
+                    if pts.shape != (n_points, 3) or not np.isfinite(pts).all():
+                        bad.append(pts.shape)
+        except Exception as e:  # reported and asserted by the caller
+            with lock:
+                failures.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        failures.append("a client thread did not finish in 600 s")
+    return latencies, wall, bad, failures
+
+
+def phase_serve(device, gen) -> dict:
+    """The serving path through its entry points, from a .pth.tar of
+    ``gen`` under build/ (deleted after): export_deploy in both formats and
+    dtypes (sizes, export and load seconds; each .pt2 against to_deploy's
+    module), the HTTP server on the bf16 artifact driven by SERVE_CLIENTS
+    client threads in a process of their own with SERVE_REQUESTS PNG
+    renders (requests/s, latency, batch fill, the forwards' share of the
+    wall, the host's ms a request; /stats must count every request the
+    moment the last reply is in), then the predict CLI over PREDICT_IMAGES
+    PNGs (one PLY against its forward row). Returns the launch counts of
+    export_deploy's, the server's and predict's runs."""
+    import shutil
+    import threading
+    import urllib.request
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from fenet_torch.cli import export_deploy, predict
+    from fenet_torch.data.synthetic import write_synthetic_shapenet
+    from fenet_torch.models.generator import to_deploy
+    from fenet_torch.serve.artifact import load_artifact
+    from fenet_torch.serve.server import build_forward, make_server
+    from fenet_torch.utils.images import normalize_rgb
+    from fenet_torch.utils.ply import load_pointcloud
+
+    root = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ckpt = root / "model_best.pth.tar"
+    torch.save({"state_dict": gen.state_dict()}, ckpt)
+    arch = ["--num_points", str(N_POINTS), "--backbone", MODEL["backbone"],
+            "--fine_width", str(MODEL["fine_width"]), "--mid_width", str(MODEL["mid_width"])]
+    rng = np.random.RandomState(4)
+    images = torch.tensor(rng.randint(0, 256, (3, 128, 128, 3)), dtype=torch.uint8,
+                          device=device)
+    exports, artifact_err = {}, {}
+    reset_counts()
+    for fmt, suffix in (("torch", ".pth"), ("export", ".pt2")):
+        for dtype in ("float32", "bfloat16"):
+            out = str(root / f"deploy_{dtype}{suffix}")
+            t0 = time.perf_counter()
+            export_deploy.main(["--model", str(ckpt), *arch, "--device", str(device),
+                                "--dtype", dtype, "--format", fmt, "--out", out])
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if fmt == "torch":
+                export_deploy.load_deploy_checkpoint(out, device)
+            else:
+                call, _ = load_artifact(out, device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            exports[f"{fmt}_{dtype}"] = {"bytes": Path(out).stat().st_size,
+                                         "export_s": export_s, "load_s": load_s}
+            if fmt == "export":
+                ref_model = to_deploy(gen, export_deploy.DTYPES[dtype])
+                with torch.inference_mode():
+                    artifact_err[dtype] = rel_err(call(images), ref_model(images)[2])
+                del call, ref_model
+    export_launches = assert_no_launches("export_deploy")
+    emit({"phase": "serve", "step": "export_deploy", "exports": exports,
+          "artifact_rel_err": artifact_err, "limit": ARTIFACT_REL_LIMIT})
+    for dtype, err in artifact_err.items():
+        if not err <= ARTIFACT_REL_LIMIT:
+            raise AssertionError(f"the {dtype} .pt2 artifact is {err} off its module")
+
+    # Requests: PNG renders of the synthetic ShapeNet writer, sent as files.
+    write_synthetic_shapenet(str(root / "data"), cats=("02828884",), models_per_cat=4,
+                             num_points=N_POINTS)
+    pngs = sorted((root / "data" / "ShapeNetRendering").rglob("*.png"))
+    artifact = str(root / "deploy_bfloat16.pt2")
+    forward, meta = build_forward(artifact, SERVE_MAX_BATCH, device)
+    events = []
+
+    def timed_forward(batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    # Warm-up outside the measured window (cuDNN plans at the serving
+    # batch), then the forward alone, back to back, for the device's share.
+    full = np.zeros((SERVE_MAX_BATCH, 128, 128, 3), np.uint8)
+    forward(full).cpu()
+    forward_alone_ms = cuda_ms(lambda: forward(full), reps=20, warmup=2)
+    # The host's part of a request, each alone in one thread: the forward's
+    # dispatch (the call's host time; the device runs behind it), the PNG
+    # decode and crop, the JSON reply's encoding.
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = forward(full)
+    host_ms = {"forward_dispatch": (time.perf_counter() - t0) / reps * 1e3}
+    cloud = out[0].float().cpu().numpy()
+    body = pngs[0].read_bytes()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        normalize_rgb(cv2.cvtColor(cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR),
+                                   cv2.COLOR_BGR2RGB))
+    host_ms["png_decode"] = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        json.dumps({"points": cloud.tolist()}).encode()
+    host_ms["json_reply"] = (time.perf_counter() - t0) / reps * 1e3
+    server = make_server(artifact, port=0, max_batch=SERVE_MAX_BATCH, window_ms=SERVE_WINDOW_MS,
+                         forward=timed_forward, meta=meta)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_counts()
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            latencies, wall, bad, failures = pool.submit(
+                serve_clients, url + "/predict", [str(p) for p in pngs], SERVE_CLIENTS,
+                SERVE_REQUESTS // SERVE_CLIENTS, N_POINTS).result()
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.load(r)
+        torch.cuda.synchronize()
+        serve_launches = assert_no_launches("serving")
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+        thread.join(timeout=30)
+    busy_ms = sum(s.elapsed_time(e) for s, e in events)
+    lat = np.sort(np.asarray(latencies)) * 1e3
+    emit({"phase": "serve", "step": "http", "artifact": "deploy_bfloat16.pt2",
+          "max_batch": SERVE_MAX_BATCH, "window_ms": SERVE_WINDOW_MS, "clients": SERVE_CLIENTS,
+          "requests": len(latencies), "wall_s": wall, "requests_per_s": len(latencies) / wall,
+          "latency_ms": {"p50": float(np.percentile(lat, 50)) if len(lat) else None,
+                         "p99": float(np.percentile(lat, 99)) if len(lat) else None,
+                         "max": float(lat[-1]) if len(lat) else None},
+          "forwards": len(events), "mean_batch_fill": len(latencies) / max(len(events), 1),
+          "forward_busy_ms": busy_ms, "forward_share_of_wall": busy_ms / 1e3 / wall,
+          "forward_alone_ms": forward_alone_ms, "host_ms_alone": host_ms,
+          "device_share_of_wall": len(events) * forward_alone_ms / 1e3 / wall,
+          "stats": stats, "launches": serve_launches, "failures": failures[:3]})
+    if failures or bad:
+        raise AssertionError(f"serving failed: {failures[:3]}, bad replies {bad[:3]}")
+    if stats != {"served": SERVE_REQUESTS, "errors": 0}:
+        raise AssertionError(f"/stats read {stats} after the last reply")
+
+    # predict over PREDICT_IMAGES PNGs.
+    img_dir = root / "predict_in"
+    img_dir.mkdir()
+    for i, p in enumerate(pngs[:PREDICT_IMAGES]):
+        shutil.copyfile(p, img_dir / f"{i:03d}.png")
+    reset_counts()
+    t0 = time.perf_counter()
+    written = predict.main(["--deploy_ckpt", artifact, "--images", str(img_dir),
+                            "--out_dir", str(root / "predict_out"), "--batchSize",
+                            str(SERVE_MAX_BATCH), "--ply_binary", "--device", str(device)])
+    predict_s = time.perf_counter() - t0
+    predict_launches = assert_no_launches("predict")
+    first = np.stack([predict._load_image(str(img_dir / f"{i:03d}.png"))
+                      for i in range(SERVE_MAX_BATCH)]).astype(np.uint8)
+    row = forward(first)[0].float().cpu().numpy()
+    ply = load_pointcloud(str(root / "predict_out" / "000.ply"))
+    ply_err = float(np.abs(ply - row).max() / np.abs(row).max())
+    emit({"phase": "serve", "step": "predict", "images": len(written), "batch": SERVE_MAX_BATCH,
+          "seconds": predict_s, "images_per_s": len(written) / predict_s,
+          "ply_vs_forward_rel_err": ply_err, "limit": ARTIFACT_REL_LIMIT,
+          "launches": predict_launches})
+    if len(written) != PREDICT_IMAGES or not ply_err <= ARTIFACT_REL_LIMIT:
+        raise AssertionError(f"predict wrote {len(written)} clouds, PLY {ply_err} off its row")
+    shutil.rmtree(root)
+    return {"export_deploy": export_launches, "serve": serve_launches,
+            "predict": predict_launches}
+
+
 def phase_timing(launches, pred, gt, train):
     """The kernels line. K1 and K3 on the eval path's inputs (the first eval
     batch: aligned predictions vs gt) at the eval settings; K5 and K6/K7 on
@@ -1375,6 +1733,9 @@ def main() -> int:
     train = phase_train(device)
     rows = phase_timing(launches, pred, gt, train)
     pix3d = phase_pix3d(device)
+    gen, deploy_launches = phase_deploy(device)
+    serving = {"deploy": deploy_launches, **phase_serve(device, gen)}
+    del gen
     launches, pred, gt = phase_eval(device, WIDE_POINTS)
     train_wide = phase_train(device, WIDE_POINTS)
     rows += phase_timing_wide(launches, pred, gt, train_wide)
@@ -1386,6 +1747,11 @@ def main() -> int:
         if row["name"] in ("chamfer_nn", "emd_auction", "emd_auction_stream"):
             row["launches_new_paths"] = {path: counts[row["name"]]
                                          for path, counts in new_paths.items()}
+        # The serving paths' counts (each asserted 0 in its phase).
+        counter = next(k for k in ("emd_auction_stream", "emd_auction", "chamfer_nn", "sinkhorn")
+                       if row["name"].startswith(k))
+        row["launches_serving_path"] = {path: counts[counter]
+                                        for path, counts in serving.items()}
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,10 @@
 from __future__ import annotations
 
 import argparse
+import os
+from typing import Dict, Iterable
 
+from fenet_torch.train.checkpoint import BEST
 from fenet_torch.train.config import TrainConfig
 
 
@@ -121,3 +124,15 @@ def config_from_args(opt) -> TrainConfig:
 
 # The reference train.py's category list.
 DEFAULT_TRAIN_CATS = ["02828884"]
+
+
+def require_checkpoints(parser: argparse.ArgumentParser, pattern: str,
+                        ids: Iterable[str]) -> Dict[str, str]:
+    """``{id: {pattern % id}/model_best.pth.tar}``; a missing file is a usage
+    error, raised before any data is read or any directory is made."""
+    paths = {i: os.path.join(pattern % i, BEST) for i in ids}
+    missing = [p for p in paths.values() if not os.path.isfile(p)]
+    if missing:
+        parser.error(f"no checkpoint at {', '.join(missing)}; train the "
+                     "category first or point --model at its checkpoint dir")
+    return paths

@@ -17,11 +17,12 @@ import os
 import numpy as np
 import torch
 
+from fenet_torch.cli.common import require_checkpoints
 from fenet_torch.data.loader import DataLoader
 from fenet_torch.data.shapenet import ShapeNetDataset, load_split
 from fenet_torch.eval.runner import evaluate_dataset
 from fenet_torch.models.convert import load_reference_checkpoint
-from fenet_torch.models.generator import Generator
+from fenet_torch.models.generator import Generator, to_deploy
 from fenet_torch.utils.device import resolve_device
 from fenet_torch.utils.logger import get_logger
 
@@ -65,18 +66,17 @@ def main(argv=None):
                         help="coarse-to-fine ICP warm start on this many "
                              "stride-subsampled points (0 = off)")
     parser.add_argument("--deploy", action="store_true",
-                        help="fold BN and RepVGG branches before eval (not "
-                             "ported yet: raises)")
+                        help="fold BN and RepVGG branches (float32) before "
+                             "eval")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch "
                              "versions of the kernels")
     opt = parser.parse_args(argv)
-    if opt.deploy:
-        parser.error("--deploy is not ported to fenet_torch yet")
     if opt.icp_rel_tolerance is None:
         opt.icp_rel_tolerance = 0.0 if opt.icp_patience == 0 else 1e-6
     print(opt)
     device = resolve_device(opt.device)
+    ckpts = require_checkpoints(parser, opt.model, opt.cats)
 
     val_models = load_split(opt.splits_path, "val_models.json")
     results = {}
@@ -86,7 +86,9 @@ def main(argv=None):
         with torch.device(device):
             gen = Generator(num_points=opt.num_points, backbone=opt.backbone,
                             fine_width=opt.fine_width, mid_width=opt.mid_width)
-        load_reference_checkpoint(gen, os.path.join(ckpt_dir, "model_best.pth.tar"))
+        load_reference_checkpoint(gen, ckpts[cat])
+        if opt.deploy:
+            gen = to_deploy(gen)
         ds = ShapeNetDataset(
             opt.data_dir_imgs, opt.data_dir_pcl, val_models, [cat],
             opt.num_points, multi_resolution=False, check_exists=True,

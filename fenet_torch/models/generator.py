@@ -10,18 +10,30 @@ raw 0..255 values; the generator permutes to NCHW once. Clouds come out
 ``edge0.*``, ``edge2.*``, ``linear``, ``fc1`` ... ``conv2_1``), so a reference
 ``.pth.tar`` loads with ``strict=True``; the decoder's per-point layers are
 ``Conv1d(k=1)`` over torch's native (B, C, L).
+
+``Generator(deploy=True)`` is the serving form: every RepVGG block one
+biased 3x3 conv, the edge convs biased with no BN. :func:`to_deploy` folds
+a branched model into it, in float32 and optionally cast to bfloat16.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fenet_torch.models.repvgg import REPVGG_CONFIGS, BatchNorm2d, RepVGG
+from fenet_torch.models.repvgg import (
+    REPVGG_CONFIGS,
+    BatchNorm2d,
+    RepVGG,
+    _bn,
+    _fuse_conv_bn,
+    fold_repvgg_params,
+)
 
 # The reference's fixed 3x3 edge filter, the same for every (out, in) pair.
 _EDGE_KERNEL = np.array(
@@ -35,7 +47,9 @@ def edge_conv2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return F.conv2d(x, kernel, padding=1)
 
 
-def _edge_conv(cin: int, cout: int) -> nn.Sequential:
+def _edge_conv(cin: int, cout: int, deploy: bool) -> nn.Sequential:
+    if deploy:  # BN folded into the conv's bias
+        return nn.Sequential(nn.Conv2d(cin, cout, 3, 2, 1, bias=True), nn.ReLU())
     return nn.Sequential(
         nn.Conv2d(cin, cout, 3, 2, 1, bias=False),
         BatchNorm2d(cout),
@@ -44,12 +58,13 @@ def _edge_conv(cin: int, cout: int) -> nn.Sequential:
 
 
 class EdgeBranch(nn.Module):
-    """Fixed edge conv -> two strided conv+BN+ReLU -> 1000-d linear."""
+    """Fixed edge conv -> two strided conv+BN+ReLU (deploy: biased conv +
+    ReLU) -> 1000-d linear."""
 
-    def __init__(self):
+    def __init__(self, deploy: bool = False):
         super().__init__()
-        self.edge0 = _edge_conv(3, 16)  # (B, 16, 64, 64)
-        self.edge2 = _edge_conv(16, 3)  # (B, 3, 32, 32)
+        self.edge0 = _edge_conv(3, 16, deploy)  # (B, 16, 64, 64)
+        self.edge2 = _edge_conv(16, 3, deploy)  # (B, 3, 32, 32)
         self.linear = nn.Linear(3 * 32 * 32, 1000)
 
     def forward(self, x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -100,16 +115,18 @@ class CascadedDecoder(nn.Module):
 
 class Generator(nn.Module):
     """The cmlp cascaded generator. ``forward(images) -> (pc1, pc2, pc3)``,
-    (B,128,3), (B,256,3), (B,num_points,3)."""
+    (B,128,3), (B,256,3), (B,num_points,3), in the parameters' dtype."""
 
     def __init__(self, num_points: int = 1024, backbone: str = "RepVGG-A2",
-                 fine_width: int = 512, mid_width: int = 128):
+                 fine_width: int = 512, mid_width: int = 128, deploy: bool = False):
         super().__init__()
-        self.RepVGG = RepVGG(REPVGG_CONFIGS[backbone])
+        self.num_points, self.backbone = num_points, backbone
+        self.fine_width, self.mid_width, self.deploy = fine_width, mid_width, deploy
+        self.RepVGG = RepVGG(REPVGG_CONFIGS[backbone], deploy)
         # The parts' layers are registered on the generator itself, so the
         # state_dict keeps the reference's flat names; the parts are held
         # outside the module tree only for their forward.
-        self._parts = (EdgeBranch(), CascadedDecoder(num_points, fine_width, mid_width))
+        self._parts = (EdgeBranch(deploy), CascadedDecoder(num_points, fine_width, mid_width))
         for part in self._parts:
             for name, child in part.named_children():
                 self.add_module(name, child)
@@ -117,11 +134,46 @@ class Generator(nn.Module):
         self.register_buffer("edge_kernel", kernel, persistent=False)
 
     def forward(self, images: torch.Tensor):
-        x = images.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+        # The parameters' dtype, so that a bf16 fold computes in bf16; the
+        # edge kernel buffer is cast with them.
+        x = images.to(self.fc1.weight.dtype).permute(0, 3, 1, 2).contiguous()
         edge_branch, decoder = self._parts
         feat = self.RepVGG(x)
         edge = edge_branch(x, self.edge_kernel)
         return decoder(torch.cat([feat, edge], dim=1))
+
+
+def fold_generator_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A branched Generator's state_dict -> the state_dict of
+    ``Generator(deploy=True)``: the RepVGG blocks through
+    :func:`fold_repvgg_params`, and each edge conv's BN folded into it."""
+    out = fold_repvgg_params(sd)
+    for name in ("edge0", "edge2"):
+        bn = f"{name}.1."
+        out[f"{name}.0.weight"], out[f"{name}.0.bias"] = _fuse_conv_bn(
+            out[f"{name}.0.weight"], *_bn(out, bn))
+        for key in [k for k in out if k.startswith(bn)]:
+            del out[key]
+    return out
+
+
+@torch.no_grad()
+def to_deploy(model: Generator, dtype: Optional[torch.dtype] = None) -> Generator:
+    """The serving form of ``model`` on its device, in eval mode: folded in
+    float32 (the reference's ``repvgg_model_convert``, which no reference
+    script calls), then, with ``dtype`` (e.g. ``torch.bfloat16``), every
+    parameter and the edge kernel cast to it. The folded forward equals the
+    branched eval forward to float32 rounding; a bf16 one computes in bf16
+    end to end and returns bf16 clouds, ~1e-2 relative off the float32
+    fold: for serving, not for metrics."""
+    # Copies: the weights the fold passes through must not alias the model's.
+    sd = {k: v.detach().to(torch.float32, copy=True) for k, v in model.state_dict().items()}
+    with torch.device("meta"):
+        deploy = Generator(model.num_points, model.backbone, model.fine_width,
+                           model.mid_width, deploy=True)
+    deploy.load_state_dict(fold_generator_params(sd), strict=True, assign=True)
+    deploy.to(device=sd["fc1.weight"].device, dtype=dtype)
+    return deploy.eval()
 
 
 @torch.no_grad()

@@ -1,10 +1,14 @@
-"""RepVGG backbone in PyTorch, branched (train-time) form (counterpart of
-``fenet/models/repvgg.py``), in eval mode or train mode.
+"""RepVGG backbone in PyTorch (counterpart of ``fenet/models/repvgg.py``):
+the branched (train-time) form in eval or train mode, and the deploy form,
+one biased 3x3 conv a block, with the fold between them as a pure function
+on state_dicts (:func:`fold_repvgg_params`).
 
 Module names follow the reference state_dict
 (``RepVGG.stage1.0.rbr_dense.conv.weight``, ``RepVGG.stage0.rbr_identity``,
-``RepVGG.linear``), so a reference ``.pth.tar`` loads with ``strict=True``.
-Layout is NCHW inside; the generator permutes its NHWC input once.
+``RepVGG.linear``; deploy: ``RepVGG.stage1.0.rbr_reparam``, the name of the
+reference's ``switch_to_deploy``), so a reference ``.pth.tar`` loads with
+``strict=True``. Layout is NCHW inside; the generator permutes its NHWC
+input once.
 """
 
 from __future__ import annotations
@@ -69,23 +73,33 @@ def _conv_bn(cin: int, cout: int, kernel: int, stride: int, padding: int,
 
 
 class RepVGGBlock(nn.Module):
-    """conv3x3+BN || conv1x1+BN || identity BN, summed, optional SE, ReLU."""
+    """conv3x3+BN || conv1x1+BN || identity BN, summed, optional SE, ReLU;
+    with ``deploy=True`` one biased 3x3 conv (``rbr_reparam``) in place of
+    the branches."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
-                 groups: int = 1, use_se: bool = False):
+                 groups: int = 1, use_se: bool = False, deploy: bool = False):
         super().__init__()
-        self.rbr_dense = _conv_bn(in_channels, out_channels, 3, stride, 1, groups)
-        self.rbr_1x1 = _conv_bn(in_channels, out_channels, 1, stride, 0, groups)
-        self.rbr_identity = (
-            BatchNorm2d(in_channels)
-            if in_channels == out_channels and stride == 1 else None
-        )
+        self.deploy = deploy
+        if deploy:
+            self.rbr_reparam = nn.Conv2d(in_channels, out_channels, 3, stride, 1,
+                                         groups=groups, bias=True)
+        else:
+            self.rbr_dense = _conv_bn(in_channels, out_channels, 3, stride, 1, groups)
+            self.rbr_1x1 = _conv_bn(in_channels, out_channels, 1, stride, 0, groups)
+            self.rbr_identity = (
+                BatchNorm2d(in_channels)
+                if in_channels == out_channels and stride == 1 else None
+            )
         self.se = SEBlock(out_channels, out_channels // 16) if use_se else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.rbr_dense(x) + self.rbr_1x1(x)
-        if self.rbr_identity is not None:
-            out = out + self.rbr_identity(x)
+        if self.deploy:
+            out = self.rbr_reparam(x)
+        else:
+            out = self.rbr_dense(x) + self.rbr_1x1(x)
+            if self.rbr_identity is not None:
+                out = out + self.rbr_identity(x)
         if self.se is not None:
             out = self.se(out)
         return torch.relu(out)
@@ -141,15 +155,16 @@ def _stage_plan(config: RepVGGConfig) -> List[Tuple[str, int, int, int]]:
 
 
 class RepVGG(nn.Module):
-    """stage0 + four stages + global average pool + linear classifier."""
+    """stage0 + four stages + global average pool + linear classifier;
+    ``deploy=True`` builds every block in its folded form."""
 
-    def __init__(self, config: RepVGGConfig):
+    def __init__(self, config: RepVGGConfig, deploy: bool = False):
         super().__init__()
         self.config = config
         stages: Dict[str, List[RepVGGBlock]] = {}
         in_ch = 3
         for name, planes, stride, groups in _stage_plan(config):
-            block = RepVGGBlock(in_ch, planes, stride, groups, config.use_se)
+            block = RepVGGBlock(in_ch, planes, stride, groups, config.use_se, deploy)
             stages.setdefault(name.split("_")[0], []).append(block)
             in_ch = planes
         self.stage0 = stages.pop("stage0")[0]
@@ -170,3 +185,68 @@ class RepVGG(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.forward_features(x))
+
+
+# ---------------------------------------------------------------------------
+# Structural reparameterization as a pure function on state_dicts
+# ---------------------------------------------------------------------------
+
+_BRANCH = "rbr_dense.conv.weight"
+
+
+def _fuse_conv_bn(weight: torch.Tensor, bn_weight: torch.Tensor, bn_bias: torch.Tensor,
+                  mean: torch.Tensor, var: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BN's statistics folded into a conv's (O, I/g, kh, kw) weight and a bias."""
+    t = bn_weight / torch.sqrt(var + _BN_EPS)
+    return weight * t[:, None, None, None], bn_bias - mean * t
+
+
+def _dirac_kernel(channels: int, groups: int, like: torch.Tensor) -> torch.Tensor:
+    """The identity as a 3x3 kernel in (O, I/groups, 3, 3) layout."""
+    input_dim = channels // groups
+    k = torch.zeros(channels, input_dim, 3, 3, dtype=like.dtype, device=like.device)
+    o = torch.arange(channels, device=like.device)
+    k[o, o % input_dim, 1, 1] = 1.0
+    return k
+
+
+def _bn(sd: Mapping[str, torch.Tensor], prefix: str):
+    return tuple(sd[prefix + leaf] for leaf in ("weight", "bias", "running_mean", "running_var"))
+
+
+def fold_block(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """One branched block's entries under ``prefix`` -> its deploy entries,
+    ``rbr_reparam.{weight,bias}`` and the SE gate's unchanged (the
+    reference's ``get_equivalent_kernel_bias``).
+
+    The identity branch's group count is read from the block's own 3x3
+    conv: it exists only where in == out channels, so groups = O / (I/g).
+    """
+    w3 = sd[prefix + _BRANCH]
+    k3, b3 = _fuse_conv_bn(w3, *_bn(sd, prefix + "rbr_dense.bn."))
+    k1, b1 = _fuse_conv_bn(sd[prefix + "rbr_1x1.conv.weight"], *_bn(sd, prefix + "rbr_1x1.bn."))
+    kernel = k3 + F.pad(k1, (1, 1, 1, 1))
+    bias = b3 + b1
+    if prefix + "rbr_identity.weight" in sd:
+        channels = w3.shape[0]
+        kid, bid = _fuse_conv_bn(_dirac_kernel(channels, channels // w3.shape[1], w3),
+                                 *_bn(sd, prefix + "rbr_identity."))
+        kernel = kernel + kid
+        bias = bias + bid
+    out = {prefix + "rbr_reparam.weight": kernel, prefix + "rbr_reparam.bias": bias}
+    out.update({k: v for k, v in sd.items() if k.startswith(prefix + "se.")})
+    return out
+
+
+def fold_repvgg_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A state_dict holding branched RepVGG blocks -> the state_dict of the
+    same modules with ``deploy=True`` (the reference's
+    ``repvgg_model_convert`` as a pure function); every entry outside the
+    blocks passes through unchanged."""
+    prefixes = [k[:-len(_BRANCH)] for k in sd if k.endswith(_BRANCH)]
+    branches = ("rbr_dense.", "rbr_1x1.", "rbr_identity.", "se.")
+    out = {k: v for k, v in sd.items()
+           if not any(k.startswith(p + b) for p in prefixes for b in branches)}
+    for prefix in prefixes:
+        out.update(fold_block(sd, prefix))
+    return out
