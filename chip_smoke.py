@@ -6,11 +6,13 @@ Builds the hand-written CUDA kernels from ``fenet_torch/csrc`` and drives
 the port's eval path (RepVGG-A2 generator -> batched ICP -> auction EMD +
 chamfer), its training step (train-mode generator -> 100·CD + 100·EMD ->
 backward -> Adam), its finetune step (the same plus 100·BCE of the
-projected silhouettes), its Pix3D evaluation and its serving path (deploy
-fold, export_deploy, the HTTP server, predict) at full width with seeded
-random weights, at 1024 points and again at 2048 (phases 4-6 below, run at
-each; the Pix3D and serving phases at 1024). Each phase prints one JSON line; any
-failure raises, and the script exits non-zero.
+projected silhouettes), its Pix3D evaluation, its serving path (deploy
+fold, export_deploy, the HTTP server, predict) and its on-disk data path
+(prepare_data, the native batch loader, train_net fed from a written tree)
+at full width with seeded random weights, at 1024 points and again at 2048
+(phases 4-6 below, run at each; the Pix3D, serving and data phases at
+1024). Each phase prints one JSON line; any failure raises, and the script
+exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles every kernel in parallel and prints the build seconds.
@@ -99,11 +101,23 @@ failure raises, and the script exits non-zero.
    (images/s); one PLY read back must equal its image's forward row. The
    serving path launches none of the kernels, and each of these runs
    asserts so with the counts set to 0 before it.
+9. data (at 1024 points, after serve): builds the native loader
+   (fenet_torch/native/loader.cpp, g++ and zlib) and writes a synthetic
+   tree under build/ (DATA_MODELS models, 384 samples; one cloud with
+   duplicated points). prepare_data on the card and on the CPU (on a copy)
+   must write byte-identical files; one FPS call must make no host sync
+   (sync debug mode "error"). One batch of 128 (variety, uint8) and one
+   with multi_resolution (float32), natively and per item: byte-equal, ms
+   and images/s, the native images at 1-8 threads. train_net for one epoch
+   of 3 steps at batch 128 fed from the tree, natively and per item: K1 2
+   and the auction 1 launch a step, every batch counted native (or
+   declined), step and data-wait ms against the train phase's in-memory
+   step.
 
 The line before the last is one JSON object with every kernel's numbers
-(K1, K3 and K4 also with their launches in the finetune, finetune_net and
-pix3d phases; every kernel with its launches on the serving paths, 0); the
-last line is ``{"ok": true, "device": {...}}``.
+(K1, K3 and K4 also with their launches in the finetune, finetune_net,
+pix3d and data phases; every kernel with its launches on the serving
+paths, 0); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -196,6 +210,12 @@ SERVE_WINDOW_MS = 5.0
 SERVE_CLIENTS = 64
 SERVE_REQUESTS = 1024
 PREDICT_IMAGES = 64
+# The data phase's tree: one category of DATA_MODELS models, 24 views each,
+# 384 samples, three batches of TRAIN_BATCH. The native loader is timed at
+# each of DATA_THREADS threads, DATA_REPS times.
+DATA_MODELS = 16
+DATA_THREADS = (1, 2, 4, 8)
+DATA_REPS = 3
 # Limits: the float32 fold against the branched forward, of max|ref|
 # (fenet's tests/test_deploy.py); the bf16 fold against the float32 fold
 # (fenet's tests/test_extras.py); the artifact against the module it was
@@ -913,7 +933,8 @@ def phase_train(device, n: int = N_POINTS) -> dict:
         syncs = host_syncs(lambda: trainer.train_step(images, points, TRAIN_EPOCH, lr))
         # The clouds the EMD loss saw: the warm-up step's, then the first
         # counted step's, on which the kernels line times this mode's kernel.
-        info[mode] = {"launches": launches, "pred": seen[1][0], "gt": seen[1][1],
+        info[mode] = {"launches": launches, "step_ms": step_ms,
+                      "pred": seen[1][0], "gt": seen[1][1],
                       "warmup_pred": seen[0][0]}
         extra = {}
         if mode == "scaled":
@@ -1504,6 +1525,215 @@ def phase_serve(device, gen) -> dict:
             "predict": predict_launches}
 
 
+def same_batches(a: dict, b: dict) -> bool:
+    """The two batch dicts hold the same keys, dtypes, shapes and bytes."""
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def phase_data(device, in_memory_step_ms) -> dict:
+    """The on-disk data path on a written tree under build/ (deleted after):
+    DATA_MODELS models of one category at N_POINTS points, 137x137 noise
+    PNGs, model 0's cloud repeating its first half (planted FPS ties).
+
+    prepare_data: the tree's 128/256-point files deleted, the CLI on the
+    card, then on a copy with --device cpu; the two sets of files must be
+    byte-identical. Its seconds a model, one FPS call at 128 and at 256
+    points by CUDA events, one call with PyTorch's sync debug mode set to
+    "error" (no host sync in the loop; its indices equal the CPU's), one
+    model profiled (launches). Batches: one shuffled batch of TRAIN_BATCH
+    (variety, uint8, as train_net reads) and one with multi_resolution
+    (float32), each through DataLoader._make_batch natively and on the
+    per-item path (a dataset whose load_batch declines), in turns; the two
+    must be byte-equal, and the batch counters must count each. The native
+    images at DATA_THREADS threads. train_net: one epoch of three steps at
+    TRAIN_BATCH from the unscaled init, no validation, fed from the tree
+    natively and then per item; each with the counts set to 0: K1 2 and
+    the auction 1 launch a step, and every batch counted native (or
+    declined); the step and data-wait seconds from its log, beside the
+    train phase's in-memory step. Returns the launch counts of the three
+    paths (prepare_data, train_net native, train_net per item)."""
+    import os
+    import random
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fenet_torch import native
+    from fenet_torch.cli import prepare_data
+    from fenet_torch.data import loader as data_loader
+    from fenet_torch.data.loader import DataLoader
+    from fenet_torch.data.sample_pcl import sample_model_cloud
+    from fenet_torch.data.shapenet import NUM_VIEWS, ShapeNetDataset, load_split
+    from fenet_torch.data.synthetic import write_synthetic_shapenet
+    from fenet_torch.ops.fps import farthest_point_sample
+    from fenet_torch.train.config import TrainConfig
+    from fenet_torch.train.driver import train_net
+
+    class PerItem(ShapeNetDataset):
+        """The per-item path, forced: load_batch always declines."""
+
+        def load_batch(self, indices):
+            return None
+
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise RuntimeError(native.build_error())
+    build_s = time.perf_counter() - t0
+    root = ROOT / "build" / "chip_smoke_data"
+    shutil.rmtree(root, ignore_errors=True)
+    tree = root / "tree"
+    cat = "02828884"
+    t0 = time.perf_counter()
+    splits = write_synthetic_shapenet(str(tree), cats=(cat,), models_per_cat=DATA_MODELS,
+                                      num_points=N_POINTS)
+    write_s = time.perf_counter() - t0
+    imgs, pcl = f"{tree}/ShapeNetRendering/", f"{tree}/ShapeNet_pointclouds/"
+    models = splits[cat]
+    tied = Path(pcl, models[0], f"pointcloud_{N_POINTS}.npy")
+    cloud = np.load(tied)
+    cloud[N_POINTS // 2:] = cloud[:N_POINTS // 2]
+    np.save(tied, cloud)
+
+    # prepare_data on the card, then on the CPU on a copy.
+    for model in models:
+        for n in (128, 256):
+            Path(pcl, model, f"pointcloud_{n}.npy").unlink()
+    shutil.copytree(pcl, root / "pcl_cpu")
+    args = ["--splits_path", f"{tree}/splits", "--num_points", str(N_POINTS), "--cats", cat]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = prepare_data.main(args + ["--data_dir_pcl", pcl, "--device", device.type])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    prep_launches = assert_no_launches("prepare_data")
+    t0 = time.perf_counter()
+    written_cpu = prepare_data.main(args + ["--data_dir_pcl", f"{root}/pcl_cpu/",
+                                            "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    if not written == written_cpu == DATA_MODELS:
+        raise AssertionError(f"prepare_data wrote {written} (card), {written_cpu} (CPU) "
+                             f"models, not {DATA_MODELS}")
+    differ = [f"{m}/pointcloud_{n}.npy" for m in models for n in (128, 256)
+              if Path(pcl, m, f"pointcloud_{n}.npy").read_bytes()
+              != Path(root, "pcl_cpu", m, f"pointcloud_{n}.npy").read_bytes()]
+    if differ:
+        raise AssertionError(f"prepare_data's files differ between card and CPU: {differ}")
+
+    x = torch.as_tensor(cloud, device=device)[None]
+    fps_ms = {str(n): cuda_ms(lambda: farthest_point_sample(x, n, ran=n == 256), 5, warmup=1)
+              for n in (128, 256)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx = farthest_point_sample(x, 256, ran=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.equal(idx.cpu(), farthest_point_sample(x.cpu(), 256, ran=True)):
+        raise AssertionError("farthest_point_sample differs between card and CPU")
+    emit({"phase": "data", "step": "prepare_data", "models": written, "N": N_POINTS,
+          "card_s": card_s, "cpu_s": cpu_s, "card_ms_per_model": card_s * 1e3 / written,
+          "cpu_ms_per_model": cpu_s * 1e3 / written, "fps_call_ms": fps_ms,
+          "files_byte_identical": True, "ties_planted": models[0],
+          "fps_sync_free": True, "launches": prep_launches,
+          "loader_build_s": build_s, "tree_write_s": write_s})
+    profile_step(lambda: sample_model_cloud(cloud, random.Random(0), device),
+                 f"prepare_data: one model (FPS of {N_POINTS} points to 128 and 256)")
+
+    # One batch natively and per item, in turns.
+    train_models = load_split(f"{tree}/splits", "train_models.json")
+    order = np.random.RandomState(0).permutation(DATA_MODELS * NUM_VIEWS)[:TRAIN_BATCH]
+    cases = {"variety, uint8": dict(variety=True, image_dtype="uint8"),
+             "multi_resolution, float32": dict(multi_resolution=True)}
+    batches = {}
+    for name, kw in cases.items():
+        loaders = {"native": DataLoader(ShapeNetDataset(imgs, pcl, train_models, [cat],
+                                                        N_POINTS, **kw), TRAIN_BATCH),
+                   "per_item": DataLoader(PerItem(imgs, pcl, train_models, [cat], N_POINTS,
+                                                  **kw), TRAIN_BATCH)}
+        ms, got = {"native": [], "per_item": []}, {}
+        data_loader.batch_counts.update(native=0, declined=0)
+        for label in ("native", "per_item", "per_item", "native", "native", "per_item"):
+            t0 = time.perf_counter()
+            got[label] = loaders[label]._make_batch(order)
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+        if data_loader.batch_counts != {"native": 3, "declined": 3}:
+            raise AssertionError(f"batch counts {data_loader.batch_counts}, not 3 and 3")
+        if not same_batches(got["native"], got["per_item"]):
+            raise AssertionError(f"native and per-item batches differ ({name})")
+        batches[name] = {"ms": ms, "images_per_s": {
+            k: TRAIN_BATCH * 1e3 / min(v) for k, v in ms.items()}, "byte_equal": True}
+    paths = [loaders["native"].dataset._render_path(int(i)) for i in order]
+    threads_ms = {}
+    for n_threads in DATA_THREADS:
+        threads_ms[str(n_threads)] = []
+        for _ in range(DATA_REPS):
+            t0 = time.perf_counter()
+            native.load_images(paths, n_threads=n_threads, dtype=np.uint8)
+            threads_ms[str(n_threads)].append((time.perf_counter() - t0) * 1e3)
+    emit({"phase": "data", "step": "batches", "batch": TRAIN_BATCH, "threads": native.N_THREADS,
+          "cpu_count": os.cpu_count(), "cases": batches, "native_images_ms": threads_ms,
+          "images": "137x137 RGB noise PNGs written by cv2 (compress worse than renders)"})
+
+    # train_net fed from the tree: natively, then per item.
+    gen = make_model(device, head_scale=1.0, n=N_POINTS)
+    init_state = {k: v.clone() for k, v in gen.state_dict().items()}
+    runs, launches = {}, {}
+    for label in ("native", "per_item"):
+        gen.load_state_dict(init_state)
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, num_points=N_POINTS, nepoch=1,
+                          validate_epochs=(), train_save_freq=0, manual_seed=0,
+                          dir_path=str(root / "out" / label), splits_path=f"{tree}/splits",
+                          data_dir_imgs=imgs, data_dir_pcl=pcl)
+        train_ds = val_ds = None  # train_net reads the tree itself
+        if label == "per_item":
+            train_ds = PerItem(imgs, pcl, train_models, [cat], N_POINTS, variety=True,
+                               image_dtype="uint8")
+            val_ds = PerItem(imgs, pcl, load_split(f"{tree}/splits", "val_models.json"),
+                             [cat], N_POINTS, image_dtype="uint8")
+        reset_counts()
+        data_loader.batch_counts.update(native=0, declined=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_net(cat, cfg, train_ds, val_ds, model=gen, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = DATA_MODELS * NUM_VIEWS // TRAIN_BATCH
+        launches[label] = launch_counts()
+        want = {"chamfer_nn": 2 * steps, "emd_auction": 0, "emd_auction_stream": 0,
+                "sinkhorn": 0}
+        want[emd_kernel_name(N_POINTS)] = steps
+        if launches[label] != want:
+            raise AssertionError(f"train_net ({label}) launched {launches[label]}, not {want}")
+        counts = dict(data_loader.batch_counts)
+        want = {"native": steps, "declined": 0} if label == "native" else {
+            "native": 0, "declined": steps}
+        if counts != want:
+            raise AssertionError(f"train_net ({label}) batches {counts}, not {want}")
+        history = out["history"]
+        if len(history) != 1 or not all(np.isfinite(history[0][k])
+                                        for k in ("chamfer_loss", "emd_loss")):
+            raise AssertionError(f"train_net ({label}) history is wrong: {history}")
+        log = Path(out["ckpt_dir"], "logging.log").read_text()
+        runs[label] = {"wall_s": wall, "batch_counts": counts, "launches": launches[label],
+                       "step_ms": [float(v) * 1e3
+                                   for v in re.findall(r"BatchTime = ([0-9.]+)", log)],
+                       "data_wait_ms": [float(v) * 1e3
+                                        for v in re.findall(r"DataTime = ([0-9.]+)", log)],
+                       "history": history}
+    emit({"phase": "data", "step": "train_net", "model": model_name(N_POINTS),
+          "batch": TRAIN_BATCH, "steps": steps, "runs": runs,
+          "in_memory_step_ms": in_memory_step_ms})
+    del gen
+    shutil.rmtree(root)
+    return {"prepare_data": prep_launches, "native": launches["native"],
+            "per_item": launches["per_item"]}
+
+
 def phase_timing(launches, pred, gt, train):
     """The kernels line. K1 and K3 on the eval path's inputs (the first eval
     batch: aligned predictions vs gt) at the eval settings; K5 and K6/K7 on
@@ -1736,13 +1966,17 @@ def main() -> int:
     gen, deploy_launches = phase_deploy(device)
     serving = {"deploy": deploy_launches, **phase_serve(device, gen)}
     del gen
+    data = phase_data(device, train["auction"]["step_ms"])
     launches, pred, gt = phase_eval(device, WIDE_POINTS)
     train_wide = phase_train(device, WIDE_POINTS)
     rows += phase_timing_wide(launches, pred, gt, train_wide)
-    # The launches of the finetune, finetune_net and pix3d phases, beside
-    # each kernel's main-path count.
+    # The launches of the finetune, finetune_net, pix3d and data phases,
+    # beside each kernel's main-path count.
     new_paths = {"finetune": train["finetune"], "finetune_wide": train_wide["finetune"],
-                 "finetune_net": train["finetune_net"], "pix3d": pix3d}
+                 "finetune_net": train["finetune_net"], "pix3d": pix3d,
+                 "data_prepare_data": data["prepare_data"],
+                 "data_train_net_native": data["native"],
+                 "data_train_net_per_item": data["per_item"]}
     for row in rows:
         if row["name"] in ("chamfer_nn", "emd_auction", "emd_auction_stream"):
             row["launches_new_paths"] = {path: counts[row["name"]]

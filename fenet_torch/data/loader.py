@@ -1,6 +1,11 @@
 """Batching with a background prefetch thread (counterpart of
 ``fenet/data/loader.py``). Batches are dicts of numpy arrays; the eval step
 moves them to the device.
+
+A dataset with a ``load_batch(indices)`` method serves a whole batch at
+once (ShapeNetDataset's native path); where it declines (returns None),
+the batch is collated from ``__getitem__``. ``batch_counts`` counts both,
+so that a fallback cannot pass unseen.
 """
 
 from __future__ import annotations
@@ -10,6 +15,11 @@ import threading
 from typing import Dict, Iterator
 
 import numpy as np
+
+# Batches served by a dataset's load_batch ("native") and batches it
+# declined, collated item by item instead ("declined"), in this process.
+batch_counts = {"native": 0, "declined": 0}
+_counts_lock = threading.Lock()
 
 
 def _collate(samples) -> Dict[str, np.ndarray]:
@@ -27,7 +37,8 @@ class DataLoader:
     """Epoch iterator: shuffle / batch / drop_last / prefetch.
 
     Args:
-      dataset: len() + __getitem__ -> dict of numpy arrays.
+      dataset: len() + __getitem__ -> dict of numpy arrays, and optionally
+        load_batch(indices) -> the batch dict, or None to decline.
       batch_size, shuffle, drop_last: as in torch.
       prefetch: queue depth of pre-assembled batches (0 disables the thread).
       seed: shuffle seed.
@@ -56,6 +67,13 @@ class DataLoader:
             yield order[i * self.batch_size : (i + 1) * self.batch_size]
 
     def _make_batch(self, idxs) -> Dict[str, np.ndarray]:
+        load_batch = getattr(self.dataset, "load_batch", None)
+        if load_batch is not None:
+            batch = load_batch([int(i) for i in idxs])
+            with _counts_lock:
+                batch_counts["native" if batch is not None else "declined"] += 1
+            if batch is not None:
+                return batch
         return _collate([self.dataset[int(i)] for i in idxs])
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

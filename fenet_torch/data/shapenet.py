@@ -1,10 +1,12 @@
-"""ShapeNet (R2N2 renderings) dataset, per-item path (counterpart of
+"""ShapeNet (R2N2 renderings) dataset (counterpart of
 ``fenet/data/shapenet.py``).
 
 Index = model x 24 views; image ``{imgs}/{model}/rendering/{NN}.png`` cropped
 ``[4:-5, 4:-5, :3]``, BGR->RGB, raw 0..255 values without normalisation;
 GT cloud ``{pcl}/{model}/pointcloud_{N}.npy``. Images are returned HWC.
-Reading renders needs OpenCV, imported only where an image is read.
+A sample is read by ``__getitem__`` (OpenCV, imported only where an image is
+read); a whole batch by ``load_batch`` through the native loader
+(:mod:`fenet_torch.native`), which gives the same bytes.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import os
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from fenet_torch import native
 
 NUM_VIEWS = 24
 HEIGHT = 128
@@ -81,6 +85,7 @@ class ShapeNetDataset:
         self.transform = transform
         self.image_dtype = np.dtype(image_dtype)
         self.modelnames: List[str] = []
+        self._meta_cache: Dict[str, np.ndarray] = {}  # model -> rendering metadata
         for cat in cats:
             for filename in models[cat]:
                 if check_exists:
@@ -105,6 +110,50 @@ class ShapeNetDataset:
         return np.load(
             os.path.join(self.data_dir_pcl, model, f"pointcloud_{n}.npy")
         ).astype(np.float32)
+
+    def _render_path(self, index: int) -> str:
+        return os.path.join(self.data_dir_imgs, self.modelnames[index], "rendering",
+                            f"{index % NUM_VIEWS:02d}.png")
+
+    def _pcl_paths(self, indices, n: int) -> List[str]:
+        return [os.path.join(self.data_dir_pcl, self.modelnames[i], f"pointcloud_{n}.npy")
+                for i in indices]
+
+    def load_batch(self, indices):
+        """The samples ``indices`` as one batch dict, read by the native
+        loader; the same arrays as ``_collate`` of ``__getitem__``. Returns
+        None, so that DataLoader falls back to the per-item path and its
+        errors, where the native path cannot serve: a transform, a library
+        that cannot be built, renders that are not 137 px, a missing or
+        unreadable file."""
+        if self.transform is not None:
+            return None
+        try:  # RuntimeError: no library; IOError: a file it cannot read
+            out = {"image": native.load_images([self._render_path(i) for i in indices],
+                                               dtype=self.image_dtype),
+                   "points": native.load_clouds(self._pcl_paths(indices, self.num_points),
+                                                self.num_points)}
+            if self.multi_resolution:
+                for n in (128, 256):
+                    out[f"points_{n}"] = native.load_clouds(self._pcl_paths(indices, n), n)
+        except (IOError, RuntimeError):
+            return None
+        if self.variety:
+            xang, yang = [], []
+            for i in indices:
+                meta = self._metadata(self.modelnames[i])
+                xang.append(np.pi / 180.0 * meta[i % NUM_VIEWS][0])
+                yang.append(np.pi / 180.0 * meta[i % NUM_VIEWS][1])
+            out["xangle"] = np.asarray(xang, np.float32)
+            out["yangle"] = np.asarray(yang, np.float32)
+        return out
+
+    def _metadata(self, model: str) -> np.ndarray:
+        """A model's rendering_metadata.txt, read once."""
+        if model not in self._meta_cache:
+            self._meta_cache[model] = np.loadtxt(os.path.join(
+                self.data_dir_imgs, model, "rendering", "rendering_metadata.txt"))
+        return self._meta_cache[model]
 
     def __getitem__(self, index: int):
         model = self.modelnames[index]
