@@ -9,9 +9,11 @@ backward -> Adam), its finetune step (the same plus 100·BCE of the
 projected silhouettes), its Pix3D evaluation, its serving path (deploy
 fold, export_deploy, the HTTP server, predict) and its on-disk data path
 (prepare_data, the native batch loader, train_net fed from a written tree)
-at full width with seeded random weights, at 1024 points and again at 2048
-(phases 4-6 below, run at each; the Pix3D, serving and data phases at
-1024). Each phase prints one JSON line; any failure raises, and the script
+and its parallel training (two ranks on torch.distributed, dp with sync-BN,
+the Megatron decoder split, the ring chamfer; NCCL in a world of one) at
+full width with seeded random weights, at 1024 points and again at 2048
+(phases 4-6 below, run at each; the Pix3D, serving, data and parallel
+phases at 1024). Each phase prints one JSON line; any failure raises, and the script
 exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
@@ -113,11 +115,28 @@ exits non-zero.
    and the auction 1 launch a step, every batch counted native (or
    declined), step and data-wait ms against the train phase's in-memory
    step.
+10. parallel (at 1024 points, after data, whose tree it reads and then
+   deletes): ranks in processes of their own (``python -m
+   fenet_torch.tools.parallel_smoke``), two on the one card over gloo
+   (NCCL refuses two ranks on one GPU), each under RANK_TIMEOUT_S. A dp=2
+   pair with sync-BN: one step from phase train's init on its 64 rows of
+   phase train's batch, against the one-process batch-128 step here (CD,
+   EMD, and with the one-process assignment replayed, gradients:
+   PARALLEL_LIMITS), then step ms, the gradient all-reduce's ms and K1 2 /
+   K3 1 launches a step; train_net for one epoch of 3 steps with
+   validation from the tree, every batch native; the ring chamfer at D=2
+   on RING_SHAPE against chamfer_distance (bit for bit on dyadic clouds;
+   the forward bit for bit and the gradients to 1e-6 on normal ones), K1
+   2·D times a forward a rank. A tp=2 pair: fc1_1 at (65536, 1024) a
+   rank, the same step checks, train_net writing a checkpoint of whole
+   tensors and resuming from it. NCCL in a world of one, joined through
+   fenet's environment variables: its collectives on a CUDA tensor and a
+   one-step train_net.
 
 The line before the last is one JSON object with every kernel's numbers
 (K1, K3 and K4 also with their launches in the finetune, finetune_net,
-pix3d and data phases; every kernel with its launches on the serving
-paths, 0); the last line is ``{"ok": true, "device": {...}}``.
+pix3d, data and parallel phases; every kernel with its launches on the
+serving paths, 0); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -200,6 +219,29 @@ TRAIN_MODES = {
     "scaled": ({"emd_scale_phases": 3, "emd_scale_thresh": 0.3}, "emd_auction"),
     "sinkhorn": ({"emd_impl": "sinkhorn"}, "sinkhorn"),
 }
+# Phase parallel: two ranks on the one card (gloo: NCCL refuses two ranks on
+# one GPU), each a process of its own under RANK_TIMEOUT_S; the gradient rows
+# of fc1_1 each step rank saves; the ring chamfer's (B, N, M) at D = 2.
+PARALLEL_RANKS = 2
+RANK_TIMEOUT_S = 600
+GRAD_ROWS = 256
+RING_SHAPE = (4, 16384, 16384)
+# A rank's step against the one-process step, replaying its assignment:
+# CD and EMD as phase_train_reference's card-vs-CPU limits; the decoder's
+# gradients (fc3_1, fc1_1's first rows) to 1e-3 relative L2, and two
+# backbone convs upstream of every sync-BN and Megatron collective to 1e-2,
+# the card-vs-CPU gradient limit: a first layer's weight gradient is a
+# cancelling sum over every position of the batch, so the order of its sums
+# shows there (the phase prints the one-process step with its batch rows
+# shuffled beside the ranks' gaps as that floor; a dropped cross-rank term is
+# ~0.8, PERF.md §6). Left to its own auction a rank's step is held
+# to the same CD and EMD limits only: on predictions ~1e-6 apart the
+# auction at eps 0.05 may end in another matching, and the gradients move
+# by percents (2.7e-2 for fc3_1 on an H100); the phase prints how the two
+# matchings differ.
+PARALLEL_LIMITS = {"cd_rel_err": 1e-5, "emd_rel_err": 1e-2, "fc3_1_grad_rel_err": 1e-3,
+                   "fc1_1_grad_rel_err": 1e-3, "stage0_conv_grad_rel_err": 1e-2,
+                   "edge0_conv_grad_rel_err": 1e-2}
 # The serving phases: the deploy forward is timed at these batches; the
 # server takes SERVE_REQUESTS PNG requests from SERVE_CLIENTS client threads
 # at SERVE_MAX_BATCH and a SERVE_WINDOW_MS window; predict runs over
@@ -1553,7 +1595,8 @@ def phase_data(device, in_memory_step_ms) -> dict:
     the auction 1 launch a step, and every batch counted native (or
     declined); the step and data-wait seconds from its log, beside the
     train phase's in-memory step. Returns the launch counts of the three
-    paths (prepare_data, train_net native, train_net per item)."""
+    paths (prepare_data, train_net native, train_net per item), and the tree
+    (``root``, ``tree``), which phase ``parallel`` reads and then deletes."""
     import os
     import random
     import re
@@ -1729,9 +1772,332 @@ def phase_data(device, in_memory_step_ms) -> dict:
           "batch": TRAIN_BATCH, "steps": steps, "runs": runs,
           "in_memory_step_ms": in_memory_step_ms})
     del gen
-    shutil.rmtree(root)
     return {"prepare_data": prep_launches, "native": launches["native"],
-            "per_item": launches["per_item"]}
+            "per_item": launches["per_item"], "root": root, "tree": tree}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(label: str, spec: dict, world: int, work: Path, environ=None) -> list:
+    """Run ``fenet_torch.tools.parallel_smoke`` in ``world`` rank processes
+    (each with its spec under ``work``), all under RANK_TIMEOUT_S; their
+    RESULT lines, by rank. Any rank's nonzero exit or timeout raises, with
+    every rank's output."""
+    import os
+
+    port = free_port()
+    env = {**os.environ, "PYTHONPATH": str(ROOT), **(environ or {})}
+    procs = []
+    for rank in range(world):
+        path = work / f"{label}_rank{rank}.json"
+        path.write_text(json.dumps({**spec, "rank": rank, "world": world, "port": port}))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "fenet_torch.tools.parallel_smoke", str(path)], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    outputs, failed = [], False
+    for proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            for other in procs:
+                other.kill()
+            out, _ = proc.communicate()
+            failed = True
+        outputs.append(out)
+        failed |= proc.returncode != 0
+    if failed:
+        raise RuntimeError(f"parallel {label}: ranks exited "
+                           f"{[p.returncode for p in procs]}:\n" + "\n".join(
+                               f"--- rank {r}\n{o[-6000:]}" for r, o in enumerate(outputs)))
+    return [json.loads(next(ln[7:] for ln in out.splitlines() if ln.startswith("RESULT ")))
+            for out in outputs]
+
+
+def rel_l2(got, ref) -> float:
+    return float((got - ref).norm() / ref.norm())
+
+
+def phase_parallel(device, data: dict) -> dict:
+    """Training and the ring chamfer in two rank processes on the one card
+    (gloo, each collective through host memory), against this process's
+    one-process runs, and NCCL in a world of one; every rank launches K1
+    and K3. The model and batch are phase train's: the unscaled seeded
+    init, SyntheticShapeNet(variety=True)'s batch of TRAIN_BATCH.
+
+    - dp=2, sync-BN: each rank one step on its 64 rows from the init,
+      twice: left to its own auction (CD 1e-5, EMD 1e-2 against the
+      one-process step at 128, as the card-vs-CPU check; the gradients'
+      distance and how the two matchings differ reported) and replaying the
+      one-process step's assignment (the same, and the gradients of fc3_1,
+      fc1_1's first rows 1e-3 relative L2, two backbone convs 1e-2:
+      PARALLEL_LIMITS; beside them the one-process step with its batch
+      rows shuffled), the ranks' replicated gradients bit-identical;
+      3 more steps: step ms, the all-reduce's ms, K1 2 and K3 1 a step. Then train_net for one epoch of 3 steps with
+      validation, fed from phase data's tree: every batch native on both
+      ranks, the same history on both.
+    - tp=2 at dp=1: each rank holds fc1_1.weight at (65536, 1024); the
+      step as above (each rank's first rows of its block of fc1_1); then train_net writes a checkpoint of whole tensors
+      (fc1_1 and its Adam moments at (131072, 1024)), resumes from it and
+      re-shards.
+    - the ring chamfer at D=2 on RING_SHAPE, dyadic and normal clouds: the
+      forward's distances and indices bit for bit against chamfer_distance
+      here; the gradients bit for bit on dyadic clouds, to rtol 1e-6 / atol
+      1e-6 on normal ones (terms up to ~6: float32 spacing 4.8e-7); K1 2·D
+      times a forward on each rank.
+    - NCCL, world 1, joined through the environment: collectives on a CUDA
+      tensor, then a one-step train_net.
+
+    Deletes phase data's tree and its own directory after. Returns each
+    path's launch counts, by path."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fenet_torch.data.loader import DataLoader
+    from fenet_torch.data.shapenet import NUM_VIEWS
+    from fenet_torch.data.synthetic import SyntheticShapeNet
+    from fenet_torch.ops.chamfer import chamfer_distance
+    from fenet_torch.tools import parallel_smoke
+    from fenet_torch.train.trainer import Trainer, reference_lr_schedule
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    lr = reference_lr_schedule(5e-4, TRAIN_EPOCH)
+    base = {"model": MODEL, "n_points": N_POINTS, "batch": TRAIN_BATCH, "seed": 0,
+            "device": device.type, "work": str(work), "lr": lr, "grad_rows": GRAD_ROWS,
+            "tree": str(data["tree"])}
+    ds = SyntheticShapeNet(n_models=6, num_points=N_POINTS, variety=True, seed=0)
+    batch = next(iter(DataLoader(ds, TRAIN_BATCH, shuffle=True, drop_last=True, seed=0)))
+    images = batch["image"].astype(np.uint8)
+
+    # The one-process step the ranks are held against, and its auction's
+    # assignment (the kernel is deterministic: the same clouds give the same
+    # matching again), which the ranks' second step replays.
+    from fenet_torch.ops.emd import earth_mover_distance
+
+    gen = parallel_smoke.init_model(base, device)
+    trainer = Trainer(gen, parallel_smoke._config(base), device=device)
+    seen = record_emd_inputs(trainer)
+    stats = trainer.train_step(images, batch["points"], TRAIN_EPOCH, lr)
+    cfg = trainer.config
+    _, assignment = earth_mover_distance(*seen[0], cfg.emd_eps, cfg.emd_iters,
+                                         cfg.emd_scale_phases, cfg.emd_early_exit,
+                                         cfg.emd_scale_thresh)
+    np.savez(work / "batch.npz", images=images, points=batch["points"],
+             assignment=assignment.cpu().numpy())
+    del trainer.emd, seen
+    base["inputs"] = str(work / "batch.npz")
+    ref_losses = {k: float(v) for k, v in stats.items()}
+    block = gen.fc1_1.weight.shape[0] // PARALLEL_RANKS
+    params = dict(gen.named_parameters())
+    ref_grads = {k: params[k].grad.cpu() for k in parallel_smoke.GRAD_KEYS}
+    ref_grads["fc1_1.weight"] = [gen.fc1_1.weight.grad[t * block:t * block + GRAD_ROWS].cpu()
+                                 for t in range(PARALLEL_RANKS)]
+    del params, trainer, gen, stats
+    torch.cuda.empty_cache()
+    # The float floor of those gradients: the same one-process step with its
+    # batch rows shuffled (the same samples, summed in another order; a swap
+    # of halves would only commute a tree's last sum), replaying the same
+    # assignment.
+    order = np.random.RandomState(0).permutation(TRAIN_BATCH)
+    _, floor_grads, floor_trainer, _ = parallel_smoke._first_step(
+        {**base, "dp": 1, "tp": 1}, device, images[order], batch["points"][order],
+        assignment[torch.as_tensor(order, device=assignment.device)])
+    del floor_trainer
+    torch.cuda.empty_cache()
+
+    limits = PARALLEL_LIMITS
+    per_step = {"chamfer_nn": 2, "emd_auction": 1, "emd_auction_stream": 0}
+    paths = {}
+
+    grad_checks = {"fc3_1_grad_rel_err": "fc3_1.weight",
+                   "stage0_conv_grad_rel_err": "RepVGG.stage0.rbr_dense.conv.weight",
+                   "edge0_conv_grad_rel_err": "edge0.0.weight"}
+
+    def against_one(losses: dict, grads: dict, block: int) -> dict:
+        rel = {"cd_rel_err": abs(losses["chamfer_loss"] - ref_losses["chamfer_loss"])
+               / abs(ref_losses["chamfer_loss"]),
+               "emd_rel_err": abs(losses["emd_loss"] - ref_losses["emd_loss"])
+               / abs(ref_losses["emd_loss"]),
+               "fc1_1_grad_rel_err": rel_l2(grads["fc1_1.weight"],
+                                            ref_grads["fc1_1.weight"][block])}
+        rel.update({k: rel_l2(grads[name], ref_grads[name]) for k, name in grad_checks.items()})
+        return rel
+
+    floor = {k: rel_l2(floor_grads[name], ref_grads[name]) for k, name in grad_checks.items()}
+    floor["fc1_1_grad_rel_err"] = rel_l2(floor_grads["fc1_1.weight"],
+                                         ref_grads["fc1_1.weight"][0])
+    del floor_grads
+
+    def check_step(label: str, results: list, dp: int, tp: int) -> None:
+        """Emit the ranks' steps against the one-process step, then raise on
+        the first fault."""
+        saved = [torch.load(work / f"step_{dp}x{tp}_rank{r}.pt") for r in range(dp * tp)]
+        checks, faults = [], []
+        for r, (res, grads) in enumerate(zip(results, saved)):
+            block = r % tp if tp > 1 else 0
+            rel = {"replayed": against_one(res["losses"], grads["replayed"], block),
+                   "free_auction": against_one(res["losses_free_auction"], grads["free"], block),
+                   "free_auction_matching": res["free_auction_matching"]}
+            checks.append(rel)
+            bad = {k: v for k, v in rel["replayed"].items() if not v <= limits[k]}
+            bad.update({f"free_auction.{k}": rel["free_auction"][k]
+                        for k in ("cd_rel_err", "emd_rel_err")
+                        if not rel["free_auction"][k] <= limits[k]})
+            if bad:
+                faults.append(f"rank {r} against one process: {bad}")
+            if res["launches_per_step"] != per_step:
+                faults.append(f"rank {r} launched {res['launches_per_step']} a step, "
+                              f"not {per_step}")
+            paths[f"parallel_{label}_step_rank{r}"] = res["launches_per_step"]
+        for kind in ("free", "replayed"):
+            for name in grad_checks.values():
+                if not torch.equal(saved[0][kind][name], saved[-1][kind][name]):
+                    faults.append(f"the ranks' {name} gradients differ ({kind})")
+        emit({"phase": "parallel", "run": f"{label} step", "backend": "gloo",
+              "transport": results[0]["transport"], "model": model_name(N_POINTS),
+              "global_batch": TRAIN_BATCH, "local_batch": results[0]["local_batch"],
+              "fc1_1_shape_per_rank": results[0]["fc1_1_shape"],
+              "vs_one_process": checks, "one_process_reordered": floor, "limits": limits,
+              "one_process_losses": ref_losses,
+              "per_rank": [{k: res[k] for k in ("losses", "step_ms", "all_reduce_ms",
+                                                "launches_per_step")} for res in results],
+              "gradient_bytes": results[0]["gradient_bytes"]})
+        if faults:
+            raise AssertionError(f"parallel {label}: " + "; ".join(faults))
+
+    def check_train_net(label: str, results: list, steps: int, val_batches: int) -> None:
+        want = {"chamfer_nn": 2 * (steps + val_batches), "emd_auction": steps + val_batches,
+                "emd_auction_stream": 0}
+        for r, res in enumerate(results):
+            for i, run in enumerate(res["runs"]):
+                if run["launches"] != want:
+                    raise AssertionError(f"parallel {label} train_net rank {r} run {i} "
+                                         f"launched {run['launches']}, not {want}")
+                native = {"native": steps + val_batches, "declined": 0}
+                if run["batch_counts"] != native:
+                    raise AssertionError(f"parallel {label} train_net rank {r} run {i} "
+                                         f"batches {run['batch_counts']}, not {native}")
+                paths[f"parallel_{label}_train_net_rank{r}" + (f"_run{i}" if i else "")] = \
+                    run["launches"]
+        histories = [[run["history"] for run in res["runs"]] for res in results]
+        if any(h != histories[0] for h in histories[1:]):
+            raise AssertionError(f"parallel {label} train_net: the ranks' histories "
+                                 f"differ: {histories}")
+
+    # Phase data's tree: its train and val splits both hold every sample; a
+    # rank reads half of each at half the batch (tp peers all of it).
+    steps = DATA_MODELS * NUM_VIEWS // TRAIN_BATCH
+    val_batches = -(-DATA_MODELS * NUM_VIEWS // TRAIN_BATCH)
+    # The ring's clouds, dyadic and normal.
+    b, n, m = RING_SHAPE
+    rng = np.random.RandomState(3)
+    clouds = {"dyadic": (rng.randint(-64, 65, (b, n, 3)) / 64.0,
+                         rng.randint(-64, 65, (b, m, 3)) / 64.0,
+                         rng.randint(1, 9, (b, n)) / 8.0, rng.randint(1, 9, (b, m)) / 8.0),
+              "normal": (rng.normal(size=(b, n, 3)), rng.normal(size=(b, m, 3)),
+                         rng.rand(b, n), rng.rand(b, m))}
+    np.savez(work / "ring.npz", **{f"{kind}.{k}": np.asarray(v, np.float32)
+                                   for kind, arrays in clouds.items()
+                                   for k, v in zip(("x1", "x2", "w1", "w2"), arrays)})
+
+    # dp = 2 with sync-BN: the step, train_net with validation, the ring.
+    results = spawn_ranks("dp2", {**base, "dp": 2, "tp": 1, "cases": [
+        ["step", {}],
+        ["train_net", {"validate": [1], "save_freq": 0, "resume": False,
+                       "out": str(work / "dp_out")}],
+        ["ring", {"inputs": str(work / "ring.npz")}]]}, PARALLEL_RANKS, work)
+    check_step("dp2", [res["step"] for res in results], 2, 1)
+    train_nets = [res["train_net"] for res in results]
+    check_train_net("dp2", train_nets, steps, val_batches)
+    if train_nets[0]["runs"][0]["data_parallel"] != 2:
+        raise AssertionError(f"parallel dp2 train_net sized the mesh {train_nets[0]}")
+    emit({"phase": "parallel", "run": "dp2 train_net", "backend": "gloo",
+          "per_rank": train_nets})
+    shutil.rmtree(work / "dp_out")
+    rings = [res["ring"] for res in results]
+
+    # tp = 2 at dp = 1: the step, train_net writing a checkpoint and resuming.
+    results = spawn_ranks("tp2", {**base, "dp": 1, "tp": 2, "cases": [
+        ["step", {}],
+        ["train_net", {"validate": [], "save_freq": 1, "resume": True,
+                       "out": str(work / "tp_out")}]]}, PARALLEL_RANKS, work)
+    shutil.rmtree(data["root"])  # phase data's tree
+    steps_tp = [res["step"] for res in results]
+    if steps_tp[0]["fc1_1_shape"] != [256 * MODEL["fine_width"] // 2, 1024]:
+        raise AssertionError(f"parallel tp2: fc1_1 per rank {steps_tp[0]['fc1_1_shape']}")
+    check_step("tp2", steps_tp, 1, 2)
+    train_nets = [res["train_net"] for res in results]
+    whole = [256 * MODEL["fine_width"], 1024]
+    shapes = train_nets[0]["checkpoint_fc1_1_shapes"]
+    if shapes != {"weight": whole, "exp_avg": whole} or train_nets[0]["fc1_1_whole_shape"] != whole:
+        raise AssertionError(f"parallel tp2 checkpoint shapes {shapes}, resumed whole "
+                             f"{train_nets[0]['fc1_1_whole_shape']}, not {whole}")
+    if [h["epoch"] for h in train_nets[0]["runs"][1]["history"]] != [2]:
+        raise AssertionError(f"parallel tp2 resume ran {train_nets[0]['runs'][1]['history']}")
+    check_train_net("tp2", train_nets, steps, 0)
+    emit({"phase": "parallel", "run": "tp2 train_net (write, resume)", "backend": "gloo",
+          "per_rank": train_nets})
+    shutil.rmtree(work / "tp_out")
+
+    # The ring chamfer at D = 2 (the dp pair's), against the one-process op.
+    ring = {}
+    for kind, arrays in clouds.items():
+        x1, x2, w1, w2 = (torch.as_tensor(np.asarray(v, np.float32), device=device)
+                          for v in arrays)
+        x1.requires_grad_(True)
+        x2.requires_grad_(True)
+        d1, d2, i1, i2 = chamfer_distance(x1, x2)
+        ((d1 * w1).sum() + (d2 * w2).sum()).backward()
+        ref = {"d1": d1.detach().cpu(), "d2": d2.detach().cpu(), "i1": i1.cpu(), "i2": i2.cpu(),
+               "g1": x1.grad.cpu(), "g2": x2.grad.cpu()}
+        parts = [torch.load(work / f"ring_{kind}_rank{r}.pt") for r in range(PARALLEL_RANKS)]
+        got = {k: torch.cat([p[k] for p in parts], dim=1) for k in ref}
+        exact = {k: bool(torch.equal(got[k], ref[k])) for k in ref}
+        for key in ("d1", "d2", "i1", "i2") + (("g1", "g2") if kind == "dyadic" else ()):
+            if not exact[key]:
+                raise AssertionError(f"parallel ring ({kind}): {key} differs from "
+                                     "chamfer_distance")
+        if kind == "normal":
+            for key in ("g1", "g2"):
+                torch.testing.assert_close(got[key], ref[key], rtol=1e-6, atol=1e-6)
+        for r, res in enumerate(rings):
+            if res[kind]["launches_forward"]["chamfer_nn"] != 2 * PARALLEL_RANKS:
+                raise AssertionError(f"parallel ring rank {r}: K1 launched "
+                                     f"{res[kind]['launches_forward']}, not 2·D")
+        ring[kind] = {"bit_exact": exact, "grad_max_abs_err": {
+            k: float((got[k] - ref[k]).abs().max()) for k in ("g1", "g2")}}
+    for r, res in enumerate(rings):
+        paths[f"parallel_ring_forward_rank{r}"] = res["dyadic"]["launches_forward"]
+    emit({"phase": "parallel", "run": "ring chamfer", "D": PARALLEL_RANKS,
+          "shape": RING_SHAPE, "backend": "gloo", "transport": rings[0]["transport"],
+          "vs_one_process": ring, "per_rank": rings})
+
+    # NCCL, a world of one, joined through fenet's environment variables.
+    results = spawn_ranks("nccl", {**base, "cases": [["nccl", {"out": str(work / "nccl_out")}]]},
+                          1, work, {"COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+                                    "FENET_NUM_PROCESSES": "1", "FENET_PROCESS_ID": "0"})
+    res = results[0]["nccl"]
+    want = {"chamfer_nn": 2 * res["train_net_steps"], "emd_auction": res["train_net_steps"],
+            "emd_auction_stream": 0}
+    if res["backend"] != "nccl" or res["launches"] != want:
+        raise AssertionError(f"parallel nccl: {res}")
+    paths["parallel_nccl_train_net"] = res["launches"]
+    emit({"phase": "parallel", "run": "nccl world 1", **res})
+    shutil.rmtree(work)
+    emit({"phase": "parallel", "run": "summary", "wall_s": time.perf_counter() - t_phase,
+          "rank_processes": 2 * PARALLEL_RANKS + 1})
+    return paths
 
 
 def phase_timing(launches, pred, gt, train):
@@ -1967,16 +2333,17 @@ def main() -> int:
     serving = {"deploy": deploy_launches, **phase_serve(device, gen)}
     del gen
     data = phase_data(device, train["auction"]["step_ms"])
+    parallel = phase_parallel(device, data)
     launches, pred, gt = phase_eval(device, WIDE_POINTS)
     train_wide = phase_train(device, WIDE_POINTS)
     rows += phase_timing_wide(launches, pred, gt, train_wide)
-    # The launches of the finetune, finetune_net, pix3d and data phases,
-    # beside each kernel's main-path count.
+    # The launches of the finetune, finetune_net, pix3d, data and parallel
+    # phases (the ranks' counts), beside each kernel's main-path count.
     new_paths = {"finetune": train["finetune"], "finetune_wide": train_wide["finetune"],
                  "finetune_net": train["finetune_net"], "pix3d": pix3d,
                  "data_prepare_data": data["prepare_data"],
                  "data_train_net_native": data["native"],
-                 "data_train_net_per_item": data["per_item"]}
+                 "data_train_net_per_item": data["per_item"], **parallel}
     for row in rows:
         if row["name"] in ("chamfer_nn", "emd_auction", "emd_auction_stream"):
             row["launches_new_paths"] = {path: counts[row["name"]]

@@ -44,11 +44,11 @@ def add_common_args(parser: argparse.ArgumentParser):
                         help="decoder mid-head per-point channels "
                              "(reference: 128)")
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help="devices in the batch axis (one device only "
-                             "so far: >1 raises)")
+                        help="ranks in the batch axis (1: the world size "
+                             "over --model_parallel); one process a rank")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help="tensor-parallel decoder heads (not ported "
-                             "yet: >1 raises)")
+                        help="ranks that split the decoder's heads "
+                             "(Megatron tensor parallelism)")
     parser.add_argument("--emd_iters", type=int, default=3000)
     parser.add_argument("--emd_eps", type=float, default=0.05)
     parser.add_argument("--emd_scale_phases", type=int, default=1,
@@ -68,8 +68,8 @@ def add_common_args(parser: argparse.ArgumentParser):
                              "anneals down to it)")
     parser.add_argument("--sinkhorn_iters", type=int, default=300)
     parser.add_argument("--sync_bn", type=int, default=1,
-                        help="BatchNorm over the global batch on multi-device "
-                             "runs (one device only so far)")
+                        help="BatchNorm over the global batch on multi-rank "
+                             "runs (0: each rank's own batch)")
     parser.add_argument("--validate_epochs", type=int, nargs="*",
                         default=[10, 30, 50],
                         help="epochs at which to validate + checkpoint "

@@ -24,6 +24,7 @@ from fenet_torch.data.pix3d import Pix3DDataset
 from fenet_torch.eval.runner import evaluate_dataset
 from fenet_torch.models.convert import load_reference_checkpoint
 from fenet_torch.models.generator import Generator, to_deploy
+from fenet_torch.parallel.distributed import finalize, initialize, is_primary, shard_for_process
 from fenet_torch.utils.device import resolve_device
 from fenet_torch.utils.logger import get_logger
 
@@ -68,6 +69,7 @@ def main(argv=None):
     opt = parser.parse_args(argv)
     if opt.icp_rel_tolerance is None:
         opt.icp_rel_tolerance = 0.0 if opt.icp_patience == 0 else 1e-6
+    initialize(device=opt.device)  # a no-op on a single process
     print(opt)
     device = resolve_device(opt.device)
     ckpts = require_checkpoints(parser, opt.model, (PIX3D_TO_SHAPENET[c] for c in opt.cats))
@@ -75,7 +77,8 @@ def main(argv=None):
     results = {}
     for cat in opt.cats:
         ckpt_dir = opt.model % PIX3D_TO_SHAPENET[cat]
-        logger = get_logger(os.path.join(ckpt_dir, "logging_pix3d.log"))
+        # Each rank evaluates its shard; rank 0 logs and prints the sums.
+        logger = get_logger(os.path.join(ckpt_dir, "logging_pix3d.log")) if is_primary() else None
         with torch.device(device):
             gen = Generator(num_points=opt.num_points, backbone=opt.backbone,
                             fine_width=opt.fine_width, mid_width=opt.mid_width)
@@ -83,7 +86,7 @@ def main(argv=None):
         if opt.deploy:
             gen = to_deploy(gen)
         ds = Pix3DDataset(opt.data_dir, category=cat, num_points=opt.num_points)
-        loader = DataLoader(ds, opt.batchSize, drop_last=False)
+        loader = DataLoader(shard_for_process(ds), opt.batchSize, drop_last=False)
         _, _, summary = evaluate_dataset(
             gen, loader, category=cat, logger=logger, device=device,
             icp_iterations=opt.icp_iters, icp_patience=opt.icp_patience,
@@ -91,7 +94,9 @@ def main(argv=None):
             icp_coarse_points=opt.icp_coarse_points, emd_iters=opt.emd_iters,
         )
         results[cat] = summary
-        print(cat, json.dumps(summary))
+        if is_primary():
+            print(cat, json.dumps(summary))
+    finalize()
     return results
 
 

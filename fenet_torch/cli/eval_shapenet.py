@@ -23,6 +23,7 @@ from fenet_torch.data.shapenet import ShapeNetDataset, load_split
 from fenet_torch.eval.runner import evaluate_dataset
 from fenet_torch.models.convert import load_reference_checkpoint
 from fenet_torch.models.generator import Generator, to_deploy
+from fenet_torch.parallel.distributed import finalize, initialize, is_primary, shard_for_process
 from fenet_torch.utils.device import resolve_device
 from fenet_torch.utils.logger import get_logger
 
@@ -74,6 +75,7 @@ def main(argv=None):
     opt = parser.parse_args(argv)
     if opt.icp_rel_tolerance is None:
         opt.icp_rel_tolerance = 0.0 if opt.icp_patience == 0 else 1e-6
+    initialize(device=opt.device)  # a no-op on a single process
     print(opt)
     device = resolve_device(opt.device)
     ckpts = require_checkpoints(parser, opt.model, opt.cats)
@@ -82,7 +84,8 @@ def main(argv=None):
     results = {}
     for cat in opt.cats:
         ckpt_dir = opt.model % cat
-        logger = get_logger(os.path.join(ckpt_dir, "logging_test.log"))
+        # Each rank evaluates its shard; rank 0 logs and prints the sums.
+        logger = get_logger(os.path.join(ckpt_dir, "logging_test.log")) if is_primary() else None
         with torch.device(device):
             gen = Generator(num_points=opt.num_points, backbone=opt.backbone,
                             fine_width=opt.fine_width, mid_width=opt.mid_width)
@@ -94,7 +97,7 @@ def main(argv=None):
             opt.num_points, multi_resolution=False, check_exists=True,
             image_dtype="uint8",
         )
-        loader = DataLoader(ds, opt.batchSize, drop_last=False)
+        loader = DataLoader(shard_for_process(ds), opt.batchSize, drop_last=False)
         _, _, summary = evaluate_dataset(
             gen, loader, category=cat, logger=logger, device=device,
             align=not opt.no_icp, icp_iterations=opt.icp_iters,
@@ -104,11 +107,13 @@ def main(argv=None):
             emd_iters=opt.emd_iters,
         )
         results[cat] = summary
-        print(cat, json.dumps(summary))
-    if results:
+        if is_primary():
+            print(cat, json.dumps(summary))
+    if results and is_primary():
         mean_cd = float(np.mean([r["ChamferDistance"] for r in results.values()]))
         mean_emd = float(np.mean([r["EMD_distance"] for r in results.values()]))
         print(json.dumps({"mean_cd": mean_cd, "mean_emd": mean_emd}))
+    finalize()
     return results
 
 

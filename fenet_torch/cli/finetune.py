@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 
 from fenet_torch.cli.common import DEFAULT_TRAIN_CATS, add_common_args, config_from_args
+from fenet_torch.parallel.distributed import finalize, initialize
 from fenet_torch.train.driver import train_net
 
 
@@ -34,6 +35,7 @@ def main(argv=None):
                              "is not a probability)")
     parser.set_defaults(nepoch=10, lr=5e-5, resume=True)
     opt = parser.parse_args(argv)
+    initialize(device=opt.device)  # a no-op on a single process
     print(opt)
 
     cats = opt.cats or ([opt.category] if opt.category else DEFAULT_TRAIN_CATS)
@@ -46,6 +48,7 @@ def main(argv=None):
         cfg.output_pcl_size = opt.OUTPUT_PCL_SIZE
         cfg.proj_squash = opt.proj_squash
         results[cat] = train_net(cat, cfg, loss_mode="finetune", device=opt.device)
+    finalize()
     return results
 
 

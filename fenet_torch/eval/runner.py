@@ -1,6 +1,8 @@
-"""Batched evaluation on one device: forward -> ICP align -> CD/EMD metrics
-(counterpart of ``fenet/eval/runner.py``; the multi-device mesh is a later
-slice).
+"""Batched evaluation: forward -> ICP align -> CD/EMD metrics (counterpart
+of ``fenet/eval/runner.py``), on one device or on each rank of a
+multi-process run, which evaluates its shard of the dataset
+(:class:`fenet_torch.parallel.ProcessShardDataset`) and sums with the
+others.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from fenet_torch.eval.metrics import EVAL_EMD_EPS, EVAL_EMD_ITERS, Metrics
 from fenet_torch.geometry.icp import align_pred_to_gt
 from fenet_torch.ops.chamfer import chamfer_distance
 from fenet_torch.ops.emd import earth_mover_distance
+from fenet_torch.parallel.distributed import world_size
+from fenet_torch.parallel.mesh import Mesh, all_gather
 from fenet_torch.utils.device import full_fp32, resolve_device
 
 
@@ -73,29 +77,47 @@ def evaluate_dataset(
     category: str = "",
     logger=None,
     device="cuda",
+    mesh: Mesh | None = None,
     **step_kwargs,
 ) -> Tuple[Metrics, Metrics, Dict[str, float]]:
     """Full-dataset eval; returns (chamfer Metrics, emd Metrics, summary).
 
     Both Metrics carry the same [EMD, CD] averages, named for best-checkpoint
     comparison, as in the reference's test loop.
+
+    On several processes each rank evaluates the shard its loader reads;
+    the shard's wrap-around duplicates (``wrap_duplicates``, at its end)
+    run through the step but stay out of the sums, and the ranks' (EMD, CD,
+    count) sums are gathered. Tensor-parallel peers (``mesh.tp`` of them)
+    evaluate identical rows, so the gathered sums are divided by their
+    number. Every rank returns the same summary.
     """
     step = make_eval_step(model, device=device, **step_kwargs)
+    shard = getattr(dataloader, "dataset", None)
+    limit = len(shard) - int(getattr(shard, "wrap_duplicates", 0)) if shard is not None else None
     emd_sum = cd_sum = 0.0
-    n_samples = 0
+    n_samples = seen = 0
     t0 = time.time()
     for i, batch in enumerate(dataloader, start=1):
         out = step(batch["image"], batch["points"])
         emd = out["emd"].cpu().numpy()
         cd = out["cd"].cpu().numpy()
-        emd_sum += float(emd.sum())
-        cd_sum += float(cd.sum())
-        n_samples += emd.shape[0]
+        take = len(emd) if limit is None else min(len(emd), max(limit - seen, 0))
+        seen += len(emd)
+        emd_sum += float(emd[:take].sum())
+        cd_sum += float(cd[:take].sum())
+        n_samples += take
         if logger is not None:
             logger.info("Test[%d/%d] Taxonomy = %s Metrics = %s", i,
                         len(dataloader), category,
                         ["%.4f" % m for m in (emd.mean(), cd.mean())])
     wall = time.time() - t0
+    if world_size() > 1:
+        sums = torch.tensor([emd_sum, cd_sum, float(n_samples)], dtype=torch.float64)
+        total = torch.stack(all_gather(sums)).sum(dim=0)
+        peers = mesh.tp if mesh is not None else 1
+        emd_sum, cd_sum = float(total[0]) / peers, float(total[1]) / peers
+        n_samples = int(round(float(total[2]) / peers))
     avg = [emd_sum / max(n_samples, 1), cd_sum / max(n_samples, 1)]
     summary = {
         "EMD_distance": avg[0],

@@ -57,7 +57,8 @@ class TrainConfig:
     emd_impl: str = "auction"
     sinkhorn_blur: float = 0.01  # final entropic eps = blur**2
     sinkhorn_iters: int = 300
-    # sync-BN on multi-device runs (not ported yet: one device only)
+    # sync-BN on multi-rank runs: BatchNorm over the global batch (False:
+    # each rank's own batch, the torch-DDP default)
     sync_bn: bool = True
 
     # validation epochs
@@ -78,6 +79,7 @@ class TrainConfig:
     lambda_bce: float = 100.0
     proj_squash: bool = False
 
-    # parallelism (one device only so far: both must stay 1)
+    # parallelism: one process a rank, data_parallel x model_parallel ranks
+    # (data_parallel 1: the world size over model_parallel)
     data_parallel: int = 1
     model_parallel: int = 1

@@ -1,11 +1,19 @@
-"""End-to-end per-category training on one device (counterpart of
+"""End-to-end per-category training (counterpart of
 ``fenet/train/driver.py``): seeded init, a shuffled DataLoader, resume from
 the newest checkpoint, periodic saves, and validation with a best copy.
+
+On several processes (:mod:`fenet_torch.parallel`) every rank takes rank
+0's seed, the mesh is sized from the world (``data_parallel`` 1 means
+``world / model_parallel``), both datasets are sharded per batch group with
+the local batch size, only rank 0 writes the log, the scalars and the
+checkpoints (the others log warnings only), and a resume loads on rank 0
+and broadcasts. Checkpoints hold whole tensors at any mesh.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import random
@@ -21,6 +29,15 @@ from fenet_torch.data.shapenet import ShapeNetDataset, load_split
 from fenet_torch.eval.metrics import Metrics
 from fenet_torch.eval.runner import evaluate_dataset
 from fenet_torch.models.generator import Generator, init_random_
+from fenet_torch.parallel.distributed import (
+    ProcessShardDataset,
+    batch_process_groups,
+    is_primary,
+    local_batch_size,
+    process_rank,
+    world_size,
+)
+from fenet_torch.parallel.mesh import broadcast_object, broadcast_tree, make_mesh
 from fenet_torch.train.checkpoint import (
     BEST,
     SUFFIX,
@@ -102,6 +119,25 @@ def _newest_checkpoint(ckpt_dir: str, cat: str, logger):
     return blob
 
 
+def _broadcast_checkpoint(ckpt_dir: str, cat: str, logger) -> Dict:
+    """The newest checkpoint, loaded on rank 0 (the only rank that writes
+    them, so the directory may be rank 0's alone) and broadcast. Rank 0
+    reports a failure to load before the tensors' broadcast, so that every
+    rank raises instead of waiting on it."""
+    blob, error = None, None
+    if is_primary():
+        try:
+            blob = _newest_checkpoint(ckpt_dir, cat, logger)
+        except Exception as e:  # any failure to load: re-raised on every rank below
+            error = f"{type(e).__name__}: {e}"
+            logger.error("resume: %s", error)
+    error = broadcast_object(error)
+    if error is not None:
+        raise RuntimeError(f"--resume: rank 0 could not load a checkpoint under {ckpt_dir}: "
+                           f"{error}")
+    return broadcast_tree(blob)
+
+
 def _restored_best(blob, key: str, name: str) -> Optional[Metrics]:
     """A checkpoint's running-best metric, or None (absent or NaN: no
     validation yet)."""
@@ -123,6 +159,10 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
     exceeds E, and its LR is ``reference_lr_schedule(cfg.lr, epoch)`` at
     those epochs.
 
+    On several processes every rank calls it with the same arguments (its
+    ``model`` on its own device); ``cfg.data_parallel`` is set to the
+    mesh's batch width.
+
     Returns ``{"history", "ckpt_dir", "trainer", "model"}``.
     """
     check_format(cfg.ckpt_format)
@@ -130,22 +170,39 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
     cat = category if isinstance(category, str) else "".join(category)
     if cfg.manual_seed is None:
         cfg.manual_seed = random.randint(1, 10000)
+    multi = world_size() > 1
+    if multi:  # every rank must init and shuffle as rank 0 does
+        cfg.manual_seed = broadcast_object(cfg.manual_seed)
     np.random.seed(cfg.manual_seed)
     torch.manual_seed(cfg.manual_seed)
+    mesh = make_mesh(cfg.data_parallel, cfg.model_parallel)
+    cfg.data_parallel = mesh.dp
 
     if train_ds is None or val_ds is None:
         train_ds, val_ds = _build_datasets(cfg, category)
-    train_loader = DataLoader(train_ds, cfg.batch_size, shuffle=True, drop_last=True,
+    batch_size = cfg.batch_size
+    if multi:  # tensor-parallel peers read the same rows: shard per batch group
+        group, n_groups = batch_process_groups(mesh)
+        batch_size = local_batch_size(cfg.batch_size, n_groups)
+        train_ds = ProcessShardDataset(train_ds, group, n_groups)
+        if len(val_ds):
+            val_ds = ProcessShardDataset(val_ds, group, n_groups)
+    train_loader = DataLoader(train_ds, batch_size, shuffle=True, drop_last=True,
                               seed=cfg.manual_seed)
-    val_loader = DataLoader(val_ds, min(cfg.batch_size, max(len(val_ds), 1)),
+    val_loader = DataLoader(val_ds, min(batch_size, max(len(val_ds), 1)),
                             shuffle=False, drop_last=False)
 
     output_dir = os.path.join(cfg.dir_path, cat)
     ckpt_dir = os.path.join(output_dir, "checkpoints")
     log_dir = os.path.join(output_dir, "logs", datetime.now().isoformat())
-    os.makedirs(ckpt_dir, exist_ok=True)
-    logger = get_logger(os.path.join(ckpt_dir, "logging.log"))
-    train_writer = MetricWriter(os.path.join(log_dir, "train"))
+    primary = is_primary()
+    if primary:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        logger = get_logger(os.path.join(ckpt_dir, "logging.log"))
+        train_writer = MetricWriter(os.path.join(log_dir, "train"))
+    else:  # no file of its own; warnings reach stderr
+        logger = logging.getLogger(f"fenet_torch.worker{process_rank()}")
+        train_writer = None
 
     if model is None:
         with torch.device(device):
@@ -154,16 +211,16 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
         init_random_(model, torch.Generator(device=device).manual_seed(cfg.manual_seed))
     if cfg.pretrained_backbone:
         load_pretrained_backbone(model, cfg.pretrained_backbone)
-    trainer = Trainer(model, cfg, loss_mode=loss_mode, device=device)
+    trainer = Trainer(model, cfg, loss_mode=loss_mode, device=device, mesh=mesh)
 
     best_chamfer: Optional[Metrics] = None
     best_emd: Optional[Metrics] = None
     all_epoch_time = 0.0
     start_epoch = cfg.start_epoch
     if cfg.resume:
-        blob = _newest_checkpoint(ckpt_dir, cat, logger)
-        model.load_state_dict(blob["state_dict"], strict=True)
-        trainer.optimizer.load_state_dict(blob["optimizer"])
+        blob = (_broadcast_checkpoint(ckpt_dir, cat, logger) if multi
+                else _newest_checkpoint(ckpt_dir, cat, logger))
+        trainer.load_full_state(blob["state_dict"], blob["optimizer"])
         start_epoch = int(blob.get("epoch", 0))
         all_epoch_time = float(blob.get("train_time", 0.0))
         # The running best: without it the first validation after a resume
@@ -172,9 +229,12 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
         best_emd = _restored_best(blob, "best_emd_loss", "EMD_distance")
 
     def checkpoint(epoch: int, is_best: bool) -> None:
+        state_dict, optimizer = trainer.full_state()  # a collective under TP
+        if not primary:
+            return
         save_checkpoint({
-            "state_dict": model.state_dict(),
-            "optimizer": trainer.optimizer.state_dict(),
+            "state_dict": state_dict,
+            "optimizer": optimizer,
             "epoch": epoch,
             "train_time": all_epoch_time,
             "best_chamfer_loss": (best_chamfer.state_dict()["ChamferDistance"]
@@ -191,8 +251,10 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
                                         metric_writer=train_writer, category=cat)
         epoch_time = time.time() - t0
         all_epoch_time += epoch_time
-        train_writer.add_scalar("Loss/Epoch/chamfer_loss", epoch_stats["chamfer_loss"], epoch)
-        train_writer.add_scalar("Loss/Epoch/emd_loss", epoch_stats["emd_loss"], epoch)
+        if train_writer is not None:
+            train_writer.add_scalar("Loss/Epoch/chamfer_loss", epoch_stats["chamfer_loss"],
+                                    epoch)
+            train_writer.add_scalar("Loss/Epoch/emd_loss", epoch_stats["emd_loss"], epoch)
         logger.info(
             "[[Category %s] Epoch %d/%d] EpochTime = %.3f (s) "
             "All_epoch_time = %.3f (s) Losses = %s",
@@ -209,7 +271,7 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
 
         if validate:
             cd_m, emd_m, summary = evaluate_dataset(
-                model, val_loader, category=cat, logger=logger, device=device,
+                model, val_loader, category=cat, logger=logger, device=device, mesh=mesh,
                 icp_iterations=cfg.eval_icp_iterations,
                 icp_tolerance=cfg.eval_icp_tolerance,
                 emd_iters=cfg.eval_emd_iters, emd_eps=cfg.eval_emd_eps,
@@ -220,5 +282,6 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
             checkpoint(epoch, is_best)
             history[-1]["val"] = summary
 
-    train_writer.close()
+    if train_writer is not None:
+        train_writer.close()
     return {"history": history, "ckpt_dir": ckpt_dir, "trainer": trainer, "model": model}

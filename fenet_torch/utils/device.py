@@ -3,13 +3,16 @@
 from __future__ import annotations
 
 import torch
+import torch.distributed
 
 
 def resolve_device(device="cuda") -> torch.device:
     """The entry points' device: ``cuda`` unless the caller asks for another.
 
     A CUDA device on a machine without a card raises; the port never
-    continues on the CPU unless the caller asked for it.
+    continues on the CPU unless the caller asked for it. In a process of a
+    multi-process run, ``cuda`` without an index is the rank's card,
+    ``cuda:(local_rank % device_count)``.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -17,6 +20,10 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path"
         )
+    if device.type == "cuda" and device.index is None and torch.distributed.is_initialized():
+        from fenet_torch.parallel.distributed import local_rank
+
+        device = torch.device("cuda", local_rank() % torch.cuda.device_count())
     return device
 
 

@@ -29,6 +29,7 @@ from fenet_torch.models.generator import (
     to_deploy,
 )
 from fenet_torch.models.repvgg import RepVGG, RepVGGConfig, fold_repvgg_params
+from torch_tmp import remove_tmp_path  # noqa: F401  (deletes each test's tmp_path)
 
 SMALL = dict(backbone="RepVGG-TEST", fine_width=32, mid_width=16)
 RTOL, ATOL = 1e-4, 1e-3  # port against fenet, as tests/test_torch_models.py

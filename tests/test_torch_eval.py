@@ -49,6 +49,7 @@ from fenet_torch.models.generator import Generator
 from fenet_torch.ops.emd import earth_mover_distance
 from fenet_torch.train.config import TrainConfig
 from fenet_torch.train.trainer import Trainer
+from torch_tmp import remove_tmp_path  # noqa: F401  (deletes each test's tmp_path)
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(backbone="RepVGG-TEST", fine_width=32, mid_width=16)

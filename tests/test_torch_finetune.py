@@ -34,6 +34,7 @@ from fenet_torch.train import checkpoint, driver
 from fenet_torch.train.config import TrainConfig
 from fenet_torch.train.trainer import Trainer, make_optimizer, reference_lr_schedule
 from test_torch_train import BATCH, N_POINTS, SMALL, STEPS, _batch, _small_models
+from torch_tmp import remove_tmp_path  # noqa: F401  (deletes each test's tmp_path)
 
 REPO = Path(__file__).resolve().parent.parent
 SCRIPT = REPO / "tests" / "test_torch_train.py"

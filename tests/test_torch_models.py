@@ -20,6 +20,7 @@ from fenet.train.checkpoint import export_torch_checkpoint, variables_to_torch_s
 from fenet_torch.models.convert import load_reference_checkpoint, state_dict_from_jax
 from fenet_torch.models.generator import Generator, init_random_
 from fenet_torch.models.repvgg import REPVGG_CONFIGS, RepVGGBlock, _stage_plan
+from torch_tmp import remove_tmp_path  # noqa: F401  (deletes each test's tmp_path)
 
 # float32 on both sides; the two convolution libraries sum in different
 # orders, which over the backbone's depth moves outputs of magnitude ~250

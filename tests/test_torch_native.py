@@ -33,6 +33,7 @@ from fenet_torch.data.loader import DataLoader, _collate
 from fenet_torch.data.shapenet import ShapeNetDataset, load_split
 from fenet_torch.data.synthetic import write_synthetic_shapenet
 from fenet_torch.data.transforms import RandomFlip
+from torch_tmp import remove_tmp_path  # noqa: F401  (deletes each test's tmp_path)
 
 REPO = Path(__file__).resolve().parent.parent
 CAT = "02691156"
@@ -43,7 +44,8 @@ N = 256
 def tree(tmp_path_factory):
     root = tmp_path_factory.mktemp("native_tree")
     write_synthetic_shapenet(str(root), cats=(CAT,), models_per_cat=2, num_points=N)
-    return root
+    yield root
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _datasets(root, **kw):

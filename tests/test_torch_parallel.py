@@ -1,0 +1,563 @@
+"""fenet_torch.parallel on the CPU, in real multi-process gloo runs, against
+fenet's parallel training and against the port's own one-process step.
+
+- ``ProcessShardDataset``, ``local_batch_size`` and ``batch_process_groups``
+  against fenet's on the same sizes (more processes than samples, padding,
+  ``load_batch`` through the index map).
+- One train step of ``RepVGG-TEST`` (fine_width 32) at a global batch of 4:
+  in 2 data-parallel ranks with sync-BN, against fenet's dp=2 step (on the
+  virtual CPU devices of ``tests/conftest.py``) and against the port's
+  one-process step at the global batch; with ``sync_bn`` off against fenet's
+  dp=2 step; in 2 tensor-parallel ranks and in a 2×2 dp×tp mesh of 4 ranks
+  against the one-process step. The ranks replay the auction assignments
+  fenet's auction made on fenet's predictions (predictions ~1e-7 apart can
+  resolve a near-tie the other way, ROADMAP Queue 3).
+- ``train_net`` in 2 ranks: rank 0's seed on both, files written by rank 0
+  only, a resume that rank 0 loads and broadcasts, a tensor-parallel
+  checkpoint that holds whole tensors (loaded with ``strict=True`` by a
+  one-process run, whose checkpoint the tensor-parallel run resumes in
+  turn), and validation summaries without the shards' duplicates.
+- The train and eval_shapenet CLIs in 2 ranks that join through fenet's
+  environment variables: rank 0's log, and the sum of the eval shards
+  against the one-process CLI.
+
+Each rank is this file run as a script (``python
+tests/test_torch_parallel.py <case> <spec.json>``), which imports no JAX
+(torch autograd and XLA:CPU corrupt the heap in one process), with one torch
+thread, a process-group timeout and a subprocess timeout
+(``tests/torch_ranks.py``); a rank's nonzero exit or timeout fails the test.
+
+fenet's gradients are read through its own step: with the optimizer made
+the identity (``optax.identity()``) and lr 1, the step's update is minus
+the gradient. Tolerances (measured margins in the comments by each).
+"""
+
+import json
+import random
+import shutil
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from torch_ranks import PG_TIMEOUT_S, env, free_port, run
+
+SMALL = dict(backbone="RepVGG-TEST", fine_width=32, mid_width=16)
+N_POINTS, GLOBAL_BATCH, EMD_ITERS = 256, 4, 50
+CAT = "02828884"
+# The gradients compared: the decoder's split pair and a replicated head,
+# the first convolution and BatchNorm of the backbone (where sync-BN's
+# cross-rank terms reach) and the edge branch's first convolution.
+GRAD_KEYS = ("fc1_1.weight", "fc1_1.bias", "conv1_1.weight", "conv1_1.bias",
+             "fc2_1.weight", "conv2_1.weight", "fc3_1.weight",
+             "RepVGG.stage0.rbr_dense.conv.weight", "RepVGG.stage0.rbr_dense.bn.weight",
+             "RepVGG.stage1.0.rbr_1x1.bn.bias", "edge0.0.weight")
+STAT_KEYS = ("RepVGG.stage0.rbr_dense.bn.running_mean", "RepVGG.stage0.rbr_dense.bn.running_var",
+             "RepVGG.stage1.0.rbr_dense.bn.running_var", "edge2.1.running_var")
+LOSS_KEYS = ("total_loss", "chamfer_loss", "emd_loss")
+
+
+def _join(spec: dict) -> None:
+    from fenet_torch.parallel.distributed import initialize
+
+    torch.set_num_threads(1)
+    if spec["world"] > 1:
+        initialize(f"127.0.0.1:{spec['port']}", spec["world"], spec["rank"], backend="gloo",
+                   device="cpu", timeout_s=PG_TIMEOUT_S)
+
+
+def _child_step(spec: dict) -> None:
+    """One train step of this rank on its rows of the global batch, with
+    the recorded assignments; saves the losses, the gradients (whole) and
+    running statistics of GRAD_KEYS / STAT_KEYS."""
+    from fenet_torch.models.generator import Generator
+    from fenet_torch.ops import emd
+    from fenet_torch.ops.pairwise import sqnorm
+    from fenet_torch.parallel import tp
+    from fenet_torch.train.config import TrainConfig
+    from fenet_torch.train.trainer import Trainer
+
+    _join(spec)
+    blob = np.load(spec["inputs"])
+    dp, tp_size = spec["dp"], spec["tp"]
+    local = GLOBAL_BATCH // dp
+    rows = slice(spec["rank"] // tp_size * local, (spec["rank"] // tp_size + 1) * local)
+    recorded = torch.tensor(blob["assignments"][rows], dtype=torch.int32)
+
+    def replay(x1, x2, *args):
+        take = recorded.long()[..., None].expand(-1, -1, 3)
+        return sqnorm(x1 - x2.gather(1, take)), recorded
+
+    emd._auction_plain = replay
+    gen = Generator(num_points=N_POINTS, **SMALL)
+    gen.load_state_dict({k[3:]: torch.tensor(blob[k]) for k in blob.files
+                         if k.startswith("sd.")}, strict=True)
+    cfg = TrainConfig(batch_size=GLOBAL_BATCH, num_points=N_POINTS, emd_iters=EMD_ITERS,
+                      data_parallel=dp, model_parallel=tp_size, sync_bn=spec["sync_bn"],
+                      **SMALL)
+    trainer = Trainer(gen, cfg, device="cpu")
+    stats = trainer.train_step(blob["imgs"][rows], blob["pts"][rows], 1, float(blob["lr"]))
+    grads = {}
+    for name, param in gen.named_parameters():
+        if name in GRAD_KEYS:
+            grad = param.grad
+            if name in tp.RULES and tp_size > 1:
+                grad = tp._gather(grad, tp.RULES[name], trainer.mesh)
+            grads[name] = grad.numpy()
+    state, _ = trainer.full_state()
+    np.savez(Path(spec["out"]) / f"rank{spec['rank']}.npz",
+             losses=np.asarray([float(stats[k]) for k in LOSS_KEYS]),
+             **{f"grad.{k}": v for k, v in grads.items()},
+             **{f"stat.{k}": state[k].numpy() for k in STAT_KEYS},
+             fc1_1_after=state["fc1_1.weight"].numpy())
+
+
+class _First:
+    """The first ``n`` samples of a dataset."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+
+def _child_train_net(spec: dict) -> None:
+    """train_net on in-memory synthetic data (24 train samples, ``val``
+    validation samples), each rank with a seed of its own to start from;
+    prints one RESULT line."""
+    from fenet_torch.data.synthetic import SyntheticShapeNet
+    from fenet_torch.train.config import TrainConfig
+    from fenet_torch.train.driver import train_net
+
+    _join(spec)
+    random.seed(1000 + spec["rank"])  # a seed of its own, were it not broadcast
+    cfg = TrainConfig(batch_size=8, num_points=N_POINTS, nepoch=spec["nepoch"],
+                      validate_epochs=tuple(spec["validate"]), train_save_freq=0,
+                      emd_iters=20, eval_icp_iterations=8, eval_emd_iters=10,
+                      dir_path=spec["dirs"][spec["rank"]], resume=spec["resume"],
+                      model_parallel=spec["tp"], **SMALL)
+    train_ds = SyntheticShapeNet(n_models=1, num_points=N_POINTS, variety=True, seed=0)
+    val_ds = _First(SyntheticShapeNet(n_models=1, num_points=N_POINTS, seed=1), spec["val"])
+    out = train_net(CAT, cfg, train_ds, val_ds, device="cpu")
+    state, _ = out["trainer"].full_state()
+    for epoch in out["history"]:  # the clock's readings differ between ranks
+        for key in ("wall_seconds", "samples_per_second"):
+            epoch.get("val", {}).pop(key, None)
+    print("RESULT " + json.dumps({
+        "seed": cfg.manual_seed, "dp": cfg.data_parallel, "history": out["history"],
+        "fc3_1": float(state["fc3_1.weight"].double().sum()),
+        "fc1_1": float(state["fc1_1.weight"].double().sum())}), flush=True)
+
+
+CHILDREN = {"step": _child_step, "train_net": _child_train_net}
+
+if __name__ == "__main__":
+    CHILDREN[sys.argv[1]](json.loads(Path(sys.argv[2]).read_text()))
+    raise SystemExit(0)
+
+import jax  # noqa: E402
+import optax  # noqa: E402
+import pytest  # noqa: E402
+
+from fenet.parallel import distributed as jax_distributed  # noqa: E402
+from fenet.parallel.mesh import make_mesh as jax_make_mesh  # noqa: E402
+from fenet.train import trainer as jax_trainer_mod  # noqa: E402
+from fenet.train.config import TrainConfig as JaxTrainConfig  # noqa: E402
+from fenet.ops.emd import earth_mover_distance as jax_emd  # noqa: E402
+from fenet_torch.models.convert import state_dict_from_jax  # noqa: E402
+from fenet_torch.parallel import distributed  # noqa: E402
+from fenet_torch.parallel.mesh import Mesh  # noqa: E402
+from test_torch_train import _small_models  # noqa: E402
+from torch_tmp import remove_tmp_path  # noqa: E402,F401  (deletes each test's tmp_path)
+
+
+def _run_ranks(case: str, spec: dict, world: int, tmp_path: Path):
+    """Run this file's ``case`` in ``world`` rank processes."""
+    port = free_port()
+    argvs = []
+    for rank in range(world):
+        path = tmp_path / f"{case}_spec{rank}.json"
+        path.write_text(json.dumps({**spec, "world": world, "rank": rank, "port": port}))
+        argvs.append([sys.executable, __file__, case, str(path)])
+    return run(argvs, [env()] * world)
+
+
+def _results(outputs):
+    return [json.loads(next(line[7:] for line in out.splitlines()
+                            if line.startswith("RESULT "))) for out in outputs]
+
+
+# -- sharding rules --------------------------------------------------------
+
+
+class _Items:
+    """A dataset of n integers with a counting load_batch."""
+
+    def __init__(self, n):
+        self.n, self.batches = n, []
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return i
+
+    def load_batch(self, indices):
+        self.batches.append(list(indices))
+        return {"index": np.asarray(indices)}
+
+
+@pytest.mark.parametrize("n,count", [(10, 3), (6, 2), (2, 4), (1, 3), (7, 7), (5, 1)])
+def test_process_shards_match_fenet(n, count, monkeypatch):
+    monkeypatch.setattr(jax, "process_index", lambda: 0)
+    for index in range(count):
+        ours = distributed.ProcessShardDataset(_Items(n), index, count)
+        theirs = jax_distributed.ProcessShardDataset(_Items(n), index, count)
+        assert len(ours) == len(theirs)
+        assert [ours[i] for i in range(len(ours))] == [theirs[i] for i in range(len(theirs))]
+        assert ours.wrap_duplicates == theirs.wrap_duplicates
+        order = list(range(len(ours)))[::-1]
+        np.testing.assert_array_equal(ours.load_batch(order)["index"],
+                                      theirs.load_batch(order)["index"])
+        assert ours.dataset.batches == [[ours[i] for i in order]]
+    with pytest.raises(ValueError):
+        distributed.ProcessShardDataset(_Items(n), count, count)
+    with pytest.raises(ValueError):
+        distributed.ProcessShardDataset(_Items(0), 0, count)
+    assert distributed.ProcessShardDataset(list(range(n)), 0, count).load_batch([0]) is None
+
+
+def test_local_batch_size_matches_fenet():
+    for batch, count in ((128, 2), (128, 4), (6, 3), (5, 1)):
+        assert (distributed.local_batch_size(batch, count)
+                == jax_distributed.local_batch_size(batch, count))
+    for fn in (distributed.local_batch_size, jax_distributed.local_batch_size):
+        with pytest.raises(ValueError, match="not divisible"):
+            fn(128, 3)
+    assert distributed.local_batch_size(128) == 128  # one process
+
+
+@pytest.mark.parametrize("dp,tp", [(2, 1), (1, 2), (2, 2), (4, 2), (2, 4)])
+def test_batch_process_groups_match_fenet(dp, tp, monkeypatch):
+    """One process a device on a (batch, model) mesh of dp × tp processes:
+    fenet reads the groups off its mesh's devices, the port off its ranks."""
+    from types import SimpleNamespace
+
+    devices = np.empty((dp, tp), dtype=object)
+    for d in range(dp):
+        for t in range(tp):
+            devices[d, t] = SimpleNamespace(process_index=d * tp + t)
+    jax_mesh = SimpleNamespace(axis_names=("batch", "model"), devices=devices)
+    for rank in range(dp * tp):
+        monkeypatch.setattr(jax, "process_index", lambda rank=rank: rank)
+        assert (distributed.batch_process_groups(Mesh(dp, tp, rank))
+                == jax_distributed.batch_process_groups(jax_mesh))
+
+
+def test_one_process_mesh_and_launch_errors():
+    from fenet_torch.parallel.mesh import make_mesh
+
+    assert make_mesh() == Mesh() and make_mesh(1, 1).size == 1
+    assert distributed.is_primary() and distributed.world_size() == 1
+    assert not distributed.initialize()  # no coordinator in the environment
+    for dp, tp in ((2, 1), (1, 2), (2, 2)):
+        with pytest.raises(ValueError, match="launch one process per rank"):
+            make_mesh(dp, tp)
+    ds = _Items(3)
+    assert distributed.shard_for_process(ds) is ds
+
+
+# -- one train step --------------------------------------------------------
+
+
+def _record(model, variables, imgs, pts, shards):
+    """fenet's auction assignments on fenet's train-mode predictions, the
+    forward taken over each of ``shards`` row blocks (1: the global batch,
+    as sync-BN normalizes it)."""
+    out = []
+    for block in np.split(np.arange(GLOBAL_BATCH), shards):
+        (_, _, pc3), _ = model.apply(variables, imgs[block], train=True,
+                                     mutable=["batch_stats"])
+        out.append(np.asarray(jax_emd(pc3, pts[block], 0.05, EMD_ITERS)[1]))
+    return np.concatenate(out)
+
+
+def _fenet_grads(model, variables, imgs, pts, dp, sync_bn, monkeypatch):
+    """fenet's step at dp devices with the identity optimizer at lr 1, whose
+    update is minus the gradient. Returns (losses, grads and running
+    statistics by the port's names)."""
+    monkeypatch.setattr(jax_trainer_mod, "make_optimizer", lambda wd: optax.identity())
+    monkeypatch.setattr(jax_trainer_mod, "_TRAIN_STEP_CACHE", {})
+    cfg = JaxTrainConfig(batch_size=GLOBAL_BATCH, num_points=N_POINTS, emd_iters=EMD_ITERS,
+                         data_parallel=dp, sync_bn=sync_bn, **SMALL)
+    trainer = jax_trainer_mod.Trainer(model, cfg, mesh=jax_make_mesh(dp))
+    state = trainer.state_from_variables(variables)
+    new, stats = trainer.train_step(state, imgs, pts, 1, 1.0)
+    grads = jax.tree_util.tree_map(lambda a, b: np.asarray(a) - np.asarray(b),
+                                   state.params, new.params)
+    sd = state_dict_from_jax({"params": grads, "batch_stats": jax.tree_util.tree_map(
+        np.asarray, new.batch_stats)})
+    return np.asarray([float(stats[k]) for k in LOSS_KEYS]), {
+        **{f"grad.{k}": sd[k].numpy() for k in GRAD_KEYS},
+        **{f"stat.{k}": sd[k].numpy() for k in STAT_KEYS}}
+
+
+def _inputs(tmp_path, state_dict, imgs, pts, assignments):
+    path = tmp_path / "inputs.npz"
+    np.savez(path, imgs=imgs, pts=pts, lr=5e-4, assignments=assignments,
+             **{f"sd.{k}": v.numpy() for k, v in state_dict.items()})
+    return str(path)
+
+
+def _port_step(tmp_path, inputs, dp, tp, sync_bn=True):
+    """The port's step in dp × tp ranks: each rank's npz, checked to hold
+    the same gradients and statistics bit for bit."""
+    out = tmp_path / f"out_{dp}x{tp}_{int(sync_bn)}"
+    out.mkdir()
+    _run_ranks("step", {"inputs": inputs, "out": str(out), "dp": dp, "tp": tp,
+                        "sync_bn": sync_bn}, dp * tp, tmp_path)
+    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(dp * tp)]
+    for other in ranks[1:]:
+        for key in ranks[0]:
+            np.testing.assert_array_equal(other[key], ranks[0][key], err_msg=key)
+    return ranks[0]
+
+
+def _rel(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.fixture(scope="module")
+def step_inputs():
+    rng = np.random.RandomState(5)
+    imgs = (rng.rand(GLOBAL_BATCH, 128, 128, 3) * 255).astype(np.float32)
+    pts = (rng.rand(GLOBAL_BATCH, N_POINTS, 3) * 0.9).astype(np.float32)
+    return (*_small_models(N_POINTS), imgs, pts)
+
+
+@pytest.fixture(scope="module")
+def global_batch(step_inputs, tmp_path_factory):
+    """The inputs with the assignments of the global batch's forward (what
+    sync-BN normalizes), and the port's one-process step on them."""
+    model, variables, state_dict, imgs, pts = step_inputs
+    root = tmp_path_factory.mktemp("global_batch")
+    inputs = _inputs(root, state_dict, imgs, pts, _record(model, variables, imgs, pts, 1))
+    yield inputs, _port_step(root, inputs, 1, 1)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _assert_grads_close(got, want, rtol, keys=GRAD_KEYS):
+    gaps = {key: _rel(got[f"grad.{key}"], want[f"grad.{key}"]) for key in keys}
+    assert max(gaps.values()) < rtol, gaps
+
+
+def _assert_stats_close(got, want, rtol, stage0_rtol):
+    for key in STAT_KEYS:
+        tol = stage0_rtol if key.startswith("RepVGG.stage0.") else rtol
+        np.testing.assert_allclose(got[f"stat.{key}"], want[f"stat.{key}"], rtol=tol,
+                                   atol=1e-6, err_msg=key)
+
+
+# The port's multi-rank step against its one-process step: measured ≤ 3.7e-6
+# relative L2 on every compared gradient (the backbone's first convolution),
+# losses within 1e-7. Against fenet's: ≤ 3.8e-6, and fenet's dp=2 gradient
+# is ≤ 6.9e-6 off its own dp=1 one (float noise, no factor). Running
+# statistics against fenet's: as tests/test_torch_train.py (stage 0 5e-5,
+# fenet's own float32 E[x²] − E[x]² error).
+GRAD_RTOL = 1e-4
+STAT_RTOL, STAGE0_STAT_RTOL = 1e-6, 5e-5
+
+
+def test_dp_step_with_sync_bn_matches_fenet_and_one_process(step_inputs, global_batch,
+                                                             tmp_path, monkeypatch):
+    model, variables, _, imgs, pts = step_inputs
+    inputs, one = global_batch
+    two = _port_step(tmp_path, inputs, 2, 1)
+    fenet_losses, fenet = _fenet_grads(model, variables, imgs, pts, 2, True, monkeypatch)
+    _, fenet_one = _fenet_grads(model, variables, imgs, pts, 1, True, monkeypatch)
+    np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-6)
+    np.testing.assert_allclose(two["losses"], fenet_losses, rtol=1e-4)
+    _assert_grads_close(two, one, GRAD_RTOL)
+    _assert_grads_close(two, fenet, GRAD_RTOL)
+    _assert_grads_close(fenet, fenet_one, GRAD_RTOL)  # fenet's dp=2 is its dp=1
+    _assert_stats_close(two, one, STAT_RTOL, STAT_RTOL)
+    _assert_stats_close(two, fenet, STAT_RTOL, STAGE0_STAT_RTOL)
+
+
+def test_dp_step_without_sync_bn_matches_fenet(step_inputs, tmp_path, monkeypatch):
+    """Each rank normalizes with its own rows; the running statistics are
+    still averaged over the ranks, as fenet's pmean does."""
+    model, variables, state_dict, imgs, pts = step_inputs
+    inputs = _inputs(tmp_path, state_dict, imgs, pts, _record(model, variables, imgs, pts, 2))
+    two = _port_step(tmp_path, inputs, 2, 1, sync_bn=False)
+    fenet_losses, fenet = _fenet_grads(model, variables, imgs, pts, 2, False, monkeypatch)
+    np.testing.assert_allclose(two["losses"], fenet_losses, rtol=1e-4)
+    _assert_grads_close(two, fenet, GRAD_RTOL)
+    _assert_stats_close(two, fenet, STAT_RTOL, STAGE0_STAT_RTOL)
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)], ids=["tp2", "dp2xtp2"])
+def test_tensor_parallel_step_matches_one_process(global_batch, tmp_path, dp, tp):
+    """The decoder's heads split over tp ranks (in a 2×2 mesh with sync-BN
+    over each column too): the same losses, gradients (the split ones
+    gathered whole) and statistics as the one-process step."""
+    inputs, one = global_batch
+    got = _port_step(tmp_path, inputs, dp, tp)
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-6)
+    _assert_grads_close(got, one, GRAD_RTOL)
+    _assert_stats_close(got, one, STAT_RTOL, STAT_RTOL)
+    # The split parameter after Adam's first step, gathered. That step moves
+    # each weight by ~lr·g/|g|, so where a gradient element is ~1e-7 from
+    # 0 the two reduction orders can move it differently (as
+    # tests/test_tp.py allows, with its bounds: measured 8 of 8.4M elements
+    # more than 2e-6 apart, none more than 3.6e-6): a layout fault (a
+    # transposed or misplaced block) would move most.
+    diff = np.abs(got["fc1_1_after"] - one["fc1_1_after"])
+    assert np.mean(diff > 2e-5 + 2e-4 * np.abs(one["fc1_1_after"])) < 1e-4
+    assert diff.max() < 2 * 5e-4
+
+
+# -- train_net ---------------------------------------------------------------
+
+
+def _files(root: Path):
+    return sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file())
+
+
+def test_train_net_in_two_data_parallel_ranks(tmp_path):
+    """Each rank draws a seed of its own and trains on rank 0's; rank 1
+    writes nothing (its dir_path stays absent); the validation of 5 samples
+    (shards of 3, one a duplicate) reads 5. The resume loads on rank 0 and
+    broadcasts: rank 1's dir_path holds no checkpoint."""
+    dirs = [str(tmp_path / "rank0"), str(tmp_path / "rank1")]
+    spec = {"tp": 1, "dirs": dirs, "val": 5}
+    first = _results(_run_ranks("train_net", {**spec, "nepoch": 1, "validate": [1],
+                                              "resume": False}, 2, tmp_path))
+    assert first[0]["seed"] == first[1]["seed"] and first[0]["dp"] == first[1]["dp"] == 2
+    assert first[0]["fc3_1"] == first[1]["fc3_1"] and first[0]["history"] == first[1]["history"]
+    assert first[0]["history"][0]["val"]["samples"] == 5
+    assert not Path(dirs[1]).exists()
+    ckpt = Path(dirs[0], CAT, "checkpoints")
+    scalars = [f for f in _files(Path(dirs[0])) if f.startswith(f"{CAT}/logs/")]
+    assert len(scalars) == 1  # one writer (tensorboardX's events or the JSONL)
+    assert {p.name for p in ckpt.iterdir()} == {
+        "logging.log", f"{CAT}_checkpoint_1.pth.tar", "model_best.pth.tar"}
+    log = (ckpt / "logging.log").read_text()
+    assert log.count("[Batch ") == 3  # 24 samples, 8 a step: rank 0's lines only
+
+    second = _results(_run_ranks("train_net", {**spec, "nepoch": 2, "validate": [2],
+                                               "resume": True}, 2, tmp_path))
+    assert [h["epoch"] for h in second[0]["history"]] == [2]
+    assert second[0]["history"] == second[1]["history"]
+    assert second[0]["fc3_1"] == second[1]["fc3_1"] != first[0]["fc3_1"]
+    assert not Path(dirs[1]).exists()
+    blob = torch.load(ckpt / f"{CAT}_checkpoint_2.pth.tar", weights_only=True)
+    assert blob["epoch"] == 2 and int(blob["optimizer"]["state"][0]["step"]) == 6
+
+
+def test_train_net_tensor_parallel_checkpoints_hold_whole_tensors(tmp_path):
+    """A tp=2 run's checkpoint holds whole parameters and Adam moments and
+    loads into a one-process model with strict=True; a one-process run
+    resumes from it, and a tp=2 run from that one's. Its validation of 6
+    samples, evaluated by both peers, reads 6."""
+    from fenet_torch.models.generator import Generator
+
+    out = str(tmp_path / "out")
+    spec = {"dirs": [out, out], "val": 6}
+    tp_run = _results(_run_ranks("train_net", {**spec, "tp": 2, "nepoch": 1, "validate": [1],
+                                               "resume": False}, 2, tmp_path))
+    assert tp_run[0] == tp_run[1] and tp_run[0]["dp"] == 1
+    assert tp_run[0]["history"][0]["val"]["samples"] == 6
+    ckpt = Path(out, CAT, "checkpoints")
+    blob = torch.load(ckpt / "model_best.pth.tar", weights_only=True)
+    gen = Generator(num_points=N_POINTS, **SMALL)
+    gen.load_state_dict(blob["state_dict"], strict=True)
+    names = [name for name, _ in gen.named_parameters()]
+    for name, param in gen.named_parameters():
+        moments = blob["optimizer"]["state"][names.index(name)]
+        assert moments["exp_avg"].shape == moments["exp_avg_sq"].shape == param.shape, name
+    assert float(blob["state_dict"]["fc1_1.weight"].double().sum()) == tp_run[0]["fc1_1"]
+
+    one = _results(_run_ranks("train_net", {**spec, "tp": 1, "nepoch": 2, "validate": [2],
+                                            "resume": True}, 1, tmp_path))
+    assert [h["epoch"] for h in one[0]["history"]] == [2]
+    back = _results(_run_ranks("train_net", {**spec, "tp": 2, "nepoch": 3, "validate": [3],
+                                             "resume": True}, 2, tmp_path))
+    assert back[0] == back[1] and [h["epoch"] for h in back[0]["history"]] == [3]
+    assert back[0]["history"][0]["val"]["samples"] == 6
+    blob = torch.load(ckpt / f"{CAT}_checkpoint_3.pth.tar", weights_only=True)
+    Generator(num_points=N_POINTS, **SMALL).load_state_dict(blob["state_dict"], strict=True)
+
+
+def test_train_cli_in_two_ranks_from_the_environment(tmp_path):
+    """The train CLI in two processes that join through fenet's variables
+    (COORDINATOR_ADDRESS, FENET_NUM_PROCESSES, FENET_PROCESS_ID) on gloo:
+    one epoch with validation on a written tree; rank 0 logs every batch,
+    rank 1 none, and the checkpoint loads with strict=True."""
+    from fenet_torch.data.synthetic import write_synthetic_shapenet
+    from fenet_torch.models.generator import Generator
+
+    write_synthetic_shapenet(str(tmp_path), cats=(CAT,), models_per_cat=1, num_points=N_POINTS)
+    args = [sys.executable, "-m", "fenet_torch.cli.train", "--device", "cpu", "--cats", CAT,
+            "--batchSize", "8", "--num_points", str(N_POINTS), "--backbone", "RepVGG-TEST",
+            "--fine_width", "32", "--mid_width", "16", "--emd_iters", "20",
+            "--nepoch", "1", "--validate_epochs", "1", "--train_save_freq", "0",
+            "--dir_path", str(tmp_path / "out"), "--splits_path", str(tmp_path / "splits"),
+            "--data_dir_imgs", str(tmp_path / "ShapeNetRendering"),
+            "--data_dir_pcl", str(tmp_path / "ShapeNet_pointclouds")]
+    port = free_port()
+    envs = [env(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", FENET_NUM_PROCESSES="2",
+                 FENET_PROCESS_ID=str(rank), FENET_DIST_BACKEND="gloo") for rank in range(2)]
+    outputs = run([args, args], envs)
+    assert outputs[0].count("[Batch ") == 3 and outputs[1].count("[Batch ") == 0
+    blob = torch.load(tmp_path / "out" / CAT / "checkpoints" / "model_best.pth.tar",
+                      weights_only=True)
+    assert blob["epoch"] == 1
+    Generator(num_points=N_POINTS, **SMALL).load_state_dict(blob["state_dict"], strict=True)
+
+
+def test_eval_cli_in_two_ranks_sums_the_shards(tmp_path):
+    """eval_shapenet in two ranks (fenet's variables, gloo): each rank
+    evaluates its shard of the 24 samples, rank 0 prints the summary of
+    all of them, and it reads what the one-process CLI reads. The ranks'
+    batches hold other samples than the one process's, and the generator's
+    outputs move ~1e-7 with that; ICP and the 50-iteration auction amplify
+    it (ROADMAP Queue 3, "EMD through the whole eval step"): CD to 1e-5,
+    EMD to the 5% of tests/test_torch_eval.py (measured 0.64%)."""
+    from fenet_torch.cli import eval_shapenet
+    from fenet_torch.data.synthetic import write_synthetic_shapenet
+    from fenet_torch.models.generator import Generator, init_random_
+
+    write_synthetic_shapenet(str(tmp_path), cats=(CAT,), models_per_cat=1, num_points=N_POINTS)
+    gen = init_random_(Generator(num_points=N_POINTS, **SMALL), torch.Generator().manual_seed(0))
+    with torch.no_grad():  # a unit-scale prediction, as a trained model's
+        for layer in (gen.fc3_1, gen.conv2_1, gen.conv1_3):
+            layer.weight.mul_(1e-3)
+            layer.bias.mul_(1e-3)
+    ckpt = tmp_path / "out" / CAT / "checkpoints"
+    ckpt.mkdir(parents=True)
+    torch.save({"state_dict": gen.state_dict()}, ckpt / "model_best.pth.tar")
+    args = ["--device", "cpu", "--batchSize", "4", "--num_points", str(N_POINTS),
+            "--backbone", "RepVGG-TEST", "--fine_width", "32", "--mid_width", "16",
+            "--cats", CAT, "--model", str(tmp_path / "out" / "%s" / "checkpoints"),
+            "--splits_path", str(tmp_path / "splits"),
+            "--data_dir_imgs", str(tmp_path / "ShapeNetRendering"),
+            "--data_dir_pcl", str(tmp_path / "ShapeNet_pointclouds")]
+    port = free_port()
+    envs = [env(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", FENET_NUM_PROCESSES="2",
+                FENET_PROCESS_ID=str(rank), FENET_DIST_BACKEND="gloo") for rank in range(2)]
+    cmd = [sys.executable, "-m", "fenet_torch.cli.eval_shapenet", *args]
+    outputs = run([cmd, cmd], envs)
+    printed = [[json.loads(line[len(CAT) + 1:]) for line in out.splitlines()
+                if line.startswith(CAT + " {")] for out in outputs]
+    assert len(printed[0]) == 1 and printed[1] == []
+    got = printed[0][0]
+    want = eval_shapenet.main(args)[CAT]
+    assert got["samples"] == want["samples"] == 24
+    np.testing.assert_allclose(got["ChamferDistance"], want["ChamferDistance"], rtol=1e-5)
+    np.testing.assert_allclose(got["EMD_distance"], want["EMD_distance"], rtol=5e-2)

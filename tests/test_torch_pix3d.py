@@ -9,6 +9,7 @@ generators' ~5e-7 difference into another path (ROADMAP Queue 3).
 """
 
 import os
+import shutil
 
 import cv2
 import jax
@@ -24,6 +25,7 @@ from fenet.train.checkpoint import export_torch_checkpoint, save_checkpoint
 from fenet_torch.cli import eval_pix3d
 from fenet_torch.data.pix3d import HEIGHT, WIDTH, Pix3DDataset
 from fenet_torch.data.synthetic import write_synthetic_pix3d
+from torch_tmp import remove_tmp_path  # noqa: F401  (deletes each test's tmp_path)
 
 SMALL = dict(backbone="RepVGG-TEST", fine_width=32, mid_width=16)
 N_POINTS = 256
@@ -49,7 +51,8 @@ def tree(tmp_path_factory):
     cv2.imwrite(os.path.join(root, chair[0]["mask"]), mask * 255)
     mask = cv2.imread(os.path.join(root, chair[1]["mask"]))
     cv2.imwrite(os.path.join(root, chair[1]["mask"]), cv2.resize(mask, (97, 131)))
-    return root, entries
+    yield root, entries
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_write_synthetic_pix3d_matches_fenet(tmp_path):

@@ -8,6 +8,7 @@ Tests marked ``gpu`` skip without a card. On the card, which has no JAX:
 """
 
 import json
+import shutil
 import threading
 import time
 import urllib.error
@@ -34,6 +35,7 @@ from fenet_torch.serve.artifact import load_artifact
 from fenet_torch.serve.batcher import MicroBatcher
 from fenet_torch.serve.server import build_forward, device_forward, make_server
 from fenet_torch.utils.ply import load_pointcloud
+from torch_tmp import remove_tmp_path  # noqa: F401  (deletes each test's tmp_path)
 
 SMALL = dict(num_points=256, backbone="RepVGG-TEST", fine_width=32, mid_width=16)
 ARCH = ["--backbone", "RepVGG-TEST", "--num_points", "256", "--fine_width", "32",
@@ -260,11 +262,14 @@ def _randomize_bn_(model, seed):
 @pytest.fixture(scope="module")
 def port_ckpt(tmp_path_factory):
     """A branched port model with random BN statistics, saved as the
-    reference's model_best.pth.tar; (path, model)."""
+    reference's model_best.pth.tar; (path, model). The directory, with the
+    deploy files ``exports`` writes beside the checkpoint, is deleted after
+    the module's tests."""
     gen = _randomize_bn_(init_random_(Generator(**SMALL), torch.Generator().manual_seed(0)), 1)
     path = tmp_path_factory.mktemp("port") / "model_best.pth.tar"
     torch.save({"state_dict": gen.state_dict()}, path)
-    return path, gen.eval()
+    yield path, gen.eval()
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def _images(seed, b):

@@ -126,6 +126,7 @@ from fenet_torch.train.config import TrainConfig  # noqa: E402
 from fenet_torch.train.driver import train_net  # noqa: E402
 from fenet_torch.train.trainer import Trainer, reference_lr_schedule  # noqa: E402
 from fenet_torch.utils.average_meter import AverageMeter  # noqa: E402
+from torch_tmp import remove_tmp_path  # noqa: E402,F401  (deletes each test's tmp_path)
 
 OUT_RTOL, OUT_ATOL = 1e-4, 1e-3
 VAR_RTOL, MEAN_ATOL = 1e-6, 1e-6
@@ -334,8 +335,8 @@ def test_options_of_later_slices_raise(tmp_path, monkeypatch):
     gen = Generator(num_points=N_POINTS, **SMALL)
     with pytest.raises(ValueError, match="loss_mode"):
         Trainer(gen, TrainConfig(), loss_mode="pretrain", device="cpu")
-    for field in ("data_parallel", "model_parallel"):
-        with pytest.raises(NotImplementedError, match="one device"):
+    for field in ("data_parallel", "model_parallel"):  # one process is one rank
+        with pytest.raises(ValueError, match="launch one process per rank"):
             Trainer(gen, TrainConfig(**{field: 2}), device="cpu")
     with pytest.raises(ValueError, match="emd_impl"):
         Trainer(gen, TrainConfig(emd_impl="exact"), device="cpu")
