@@ -8,13 +8,15 @@ chamfer), its training step (train-mode generator -> 100·CD + 100·EMD ->
 backward -> Adam), its finetune step (the same plus 100·BCE of the
 projected silhouettes), its Pix3D evaluation, its serving path (deploy
 fold, export_deploy, the HTTP server, predict) and its on-disk data path
-(prepare_data, the native batch loader, train_net fed from a written tree)
-and its parallel training (two ranks on torch.distributed, dp with sync-BN,
-the Megatron decoder split, the ring chamfer; NCCL in a world of one) at
-full width with seeded random weights, at 1024 points and again at 2048
-(phases 4-6 below, run at each; the Pix3D, serving, data and parallel
-phases at 1024). Each phase prints one JSON line; any failure raises, and the script
-exits non-zero.
+(prepare_data, the native batch loader, train_net fed from a written tree),
+its parallel training (two ranks on torch.distributed, dp with sync-BN,
+the Megatron decoder split, the ring chamfer; NCCL in a world of one), and
+the rest (fscore, the dense auction above 8192 points, a profiler trace,
+the golden-table recorder, Grad-CAM, SimpleGenerator and the render and
+heatmap CLIs) at full width with seeded random weights, at 1024 points and
+again at 2048 (phases 4-6 below, run at each; the Pix3D, serving, data,
+parallel, analysis, goldens and viz phases at 1024). Each phase prints one
+JSON line; any failure raises, and the script exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles every kernel in parallel and prints the build seconds.
@@ -99,10 +101,15 @@ exits non-zero.
    by 64 client threads (a process of their own) with 1024 PNG renders in
    all (requests/s, p50 and p99 latency, the mean batch fill, the
    forwards' CUDA-event ms over the wall); /stats must read 1024 served and 0 errors the moment the last
-   reply is in. Then the predict CLI over 64 PNGs at --batchSize 32
-   (images/s); one PLY read back must equal its image's forward row. The
-   serving path launches none of the kernels, and each of these runs
-   asserts so with the counts set to 0 before it.
+   reply is in. Between the server and predict: the forward over every
+   visible card (its count printed), then two replicas on one card at
+   max_batch 33 (rounded to 34): the float32 fold and the bf16 .pt2 against
+   their one-device forwards (SPLIT_REL_LIMIT, BF16_REL_LIMIT), with no
+   host sync inside the split forward, and the server again on the bf16
+   .pt2 through the two replicas. Then the predict CLI over 64 PNGs at
+   --batchSize 32 (images/s); one PLY read back must equal its image's
+   forward row. The serving path launches none of the kernels, and each of
+   these runs asserts so with the counts set to 0 before it.
 9. data (at 1024 points, after serve): builds the native loader
    (fenet_torch/native/loader.cpp, g++ and zlib) and writes a synthetic
    tree under build/ (DATA_MODELS models, 384 samples; one cloud with
@@ -133,10 +140,32 @@ exits non-zero.
    fenet's environment variables: its collectives on a CUDA tensor and a
    one-step train_net.
 
+11. analysis (at 1024 points, after timing): fscore on the eval batch's
+   aligned clouds at FSCORE_THRESHOLDS against the CPU (within one point a
+   cloud), K1 2 launches a call; the dense auction (earth_mover_distance
+   above 8192 points) at DENSE_SHAPE in eval settings on dyadic clouds
+   against the CPU (bit for bit, and the EMD metric to 1e-2), its calls
+   counted apart and no kernel launched, its time and peak memory;
+   profiling.trace over one eval step, which must write one Chrome trace
+   holding CUDA kernel events.
+12. goldens (after parallel): record_goldens at full width, the eval init
+   as one .pth.tar, on a synthetic tree of the 13 categories (one model, 24
+   views; GOLDENS_EMPTY without data, so skipped), batch 64, strict ICP: K1
+   2 and K3 1 launches a batch, samples/s, one batch's stages (ICP's
+   share); one category through the same CLI with --device cpu against the
+   card (CD GOLDENS_CD_REL, EMD GOLDENS_EMD_REL).
+13. viz (on goldens' tree and checkpoint): the heatmap CLI without and with
+   --layer, and, where matplotlib is installed (looked up first), the
+   render CLI plain and --deploy and render_pix3d twice (its skip rule),
+   each writing the files fenet's would, with no kernel launch; Grad-CAM on
+   the card against the CPU (GRADCAM_ATOL) at the final map and stage3, and
+   SimpleGenerator's forward against the CPU (1e-4 of max|ref|).
+
 The line before the last is one JSON object with every kernel's numbers
 (K1, K3 and K4 also with their launches in the finetune, finetune_net,
-pix3d, data and parallel phases; every kernel with its launches on the
-serving paths, 0); the last line is ``{"ok": true, "device": {...}}``.
+pix3d, data, parallel, analysis, goldens and viz phases; every kernel with
+its launches on the serving paths, 0); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -265,6 +294,34 @@ DATA_REPS = 3
 FOLD_REL_LIMIT = 1e-3
 BF16_REL_LIMIT = 0.05
 ARTIFACT_REL_LIMIT = 1e-6
+# Two replicas on one card, the serving batch raised from 33 to 34 by the
+# rounding to the device count; a split forward's rows against the
+# one-device forward's, of max|ref|: the same weights at half the batch,
+# where cuDNN may choose another algorithm (the deploy phase's card-vs-CPU
+# limit; the bf16 .pt2 is held to BF16_REL_LIMIT).
+TWO_REPLICAS = ("cuda:0", "cuda:0")
+TWO_REPLICA_BATCH = 33
+SPLIT_REL_LIMIT = 1e-4
+# Phase goldens: the 13 categories, GOLDENS_EMPTY's files removed (its row
+# is skipped; not one of Pix3D's mapped ids, which phase viz renders). One
+# category through the CLI on the card and on the CPU, its CD and EMD: the
+# EMD to the whole eval step's 5% (tests/test_torch_goldens.py), the CD to
+# 1e-2, the eval phase's card-vs-CPU EMD limit. Strict ICP runs each cloud
+# to a float32 fixed point; the generator's ~2e-6 card-vs-CPU gap moves
+# that point, and the category's CD moved 1.4e-3 on an H100 (PERF.md §5). The
+# phase prints the stages' gaps on identical inputs beside it.
+GOLDENS_EMPTY = "04530566"
+GOLDENS_CD_REL = 1e-2
+GOLDENS_EMD_REL = 5e-2
+# Phase analysis: fscore's thresholds on the squared distance (fenet's
+# default and a looser one, which the eval clouds pass more often); the
+# dense auction's (B, N), N above the kernels' 8192.
+FSCORE_THRESHOLDS = (1e-4, 1e-2)
+DENSE_SHAPE = (2, 8200)
+# Phase viz: Grad-CAM's [0, 1] map on the card against the CPU, at full
+# width, to the CPU tests' tolerance against fenet (tests/test_torch_viz.py;
+# 6.0e-7 measured on an H100, PERF.md §5).
+GRADCAM_ATOL = 1e-4
 # The untrained prediction is ~30x the gt's scale; scaling the three output
 # heads brings it to the gt's, as a trained model's is. Training starts from
 # the unscaled init, as the reference does: Adam's first steps move every
@@ -419,7 +476,10 @@ def host_syncs(fn) -> list:
     syncs = []
 
     def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
+        # PyTorch also warns, once a process, that the debug mode itself is
+        # a prototype ("Synchronization debug mode is a prototype feature"):
+        # that is no sync.
+        if "synchroniz" not in str(message) or "prototype" in str(message):
             return
         port = [f for f in traceback.extract_stack()
                 if Path(f.filename).resolve().is_relative_to(ROOT / "fenet_torch")]
@@ -800,7 +860,7 @@ def phase_pix3d(device) -> dict:
     cats = tuple(eval_pix3d.PIX3D_TO_SHAPENET)
     write_synthetic_pix3d(str(root / "pix3d"), cats=cats, samples_per_cat=PIX3D_SAMPLES,
                           num_points=N_POINTS)
-    gen = make_model(device, n=N_POINTS).to(device)
+    gen = make_model(device, n=N_POINTS)
     first = None
     for cat_id in eval_pix3d.PIX3D_TO_SHAPENET.values():
         path = root / "out" / cat_id / "checkpoints" / "model_best.pth.tar"
@@ -1295,7 +1355,7 @@ def phase_deploy(device):
     from fenet_torch.utils.device import full_fp32
 
     full_fp32()
-    gen = randomize_bn_(make_model(device, n=N_POINTS).to(device), 7)
+    gen = randomize_bn_(make_model(device, n=N_POINTS), 7)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1402,13 +1462,14 @@ def phase_serve(device, gen) -> dict:
     renders (requests/s, latency, batch fill, the forwards' share of the
     wall, the host's ms a request; /stats must count every request the
     moment the last reply is in), then the predict CLI over PREDICT_IMAGES
-    PNGs (one PLY against its forward row). Returns the launch counts of
-    export_deploy's, the server's and predict's runs."""
+    PNGs (one PLY against its forward row). Between the two, the forward
+    over every visible card, and two replicas on one card (TWO_REPLICAS) at
+    TWO_REPLICA_BATCH: the float32 fold and the bf16 .pt2 against their
+    one-device forwards, no host sync in the split forward, and the HTTP
+    server again through the bf16 .pt2's two replicas. Returns the launch
+    counts of export_deploy's, the servers' and predict's runs."""
     import shutil
-    import threading
-    import urllib.request
 
-    import cv2
     import numpy as np
     import torch
 
@@ -1416,8 +1477,8 @@ def phase_serve(device, gen) -> dict:
     from fenet_torch.data.synthetic import write_synthetic_shapenet
     from fenet_torch.models.generator import to_deploy
     from fenet_torch.serve.artifact import load_artifact
-    from fenet_torch.serve.server import build_forward, make_server
-    from fenet_torch.utils.images import normalize_rgb
+    from fenet_torch.serve.batcher import fetch
+    from fenet_torch.serve.server import build_forward
     from fenet_torch.utils.ply import load_pointcloud
 
     root = ROOT / "build" / "chip_smoke_serve"
@@ -1466,78 +1527,37 @@ def phase_serve(device, gen) -> dict:
     pngs = sorted((root / "data" / "ShapeNetRendering").rglob("*.png"))
     artifact = str(root / "deploy_bfloat16.pt2")
     forward, meta = build_forward(artifact, SERVE_MAX_BATCH, device)
-    events = []
+    serve_launches = serve_http("http", forward, meta, artifact, pngs)
 
-    def timed_forward(batch):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = forward(batch)
-        end.record()
-        events.append((start, end))
-        return out
-
-    # Warm-up outside the measured window (cuDNN plans at the serving
-    # batch), then the forward alone, back to back, for the device's share.
-    full = np.zeros((SERVE_MAX_BATCH, 128, 128, 3), np.uint8)
-    forward(full).cpu()
-    forward_alone_ms = cuda_ms(lambda: forward(full), reps=20, warmup=2)
-    # The host's part of a request, each alone in one thread: the forward's
-    # dispatch (the call's host time; the device runs behind it), the PNG
-    # decode and crop, the JSON reply's encoding.
-    reps = 20
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = forward(full)
-    host_ms = {"forward_dispatch": (time.perf_counter() - t0) / reps * 1e3}
-    cloud = out[0].float().cpu().numpy()
-    body = pngs[0].read_bytes()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        normalize_rgb(cv2.cvtColor(cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR),
-                                   cv2.COLOR_BGR2RGB))
-    host_ms["png_decode"] = (time.perf_counter() - t0) / reps * 1e3
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        json.dumps({"points": cloud.tolist()}).encode()
-    host_ms["json_reply"] = (time.perf_counter() - t0) / reps * 1e3
-    server = make_server(artifact, port=0, max_batch=SERVE_MAX_BATCH, window_ms=SERVE_WINDOW_MS,
-                         forward=timed_forward, meta=meta)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}"
-    try:
-        reset_counts()
-        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
-            latencies, wall, bad, failures = pool.submit(
-                serve_clients, url + "/predict", [str(p) for p in pngs], SERVE_CLIENTS,
-                SERVE_REQUESTS // SERVE_CLIENTS, N_POINTS).result()
-        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
-            stats = json.load(r)
-        torch.cuda.synchronize()
-        serve_launches = assert_no_launches("serving")
-    finally:
-        server.shutdown()
-        server.server_close()
-        server.batcher.close()
-        thread.join(timeout=30)
-    busy_ms = sum(s.elapsed_time(e) for s, e in events)
-    lat = np.sort(np.asarray(latencies)) * 1e3
-    emit({"phase": "serve", "step": "http", "artifact": "deploy_bfloat16.pt2",
-          "max_batch": SERVE_MAX_BATCH, "window_ms": SERVE_WINDOW_MS, "clients": SERVE_CLIENTS,
-          "requests": len(latencies), "wall_s": wall, "requests_per_s": len(latencies) / wall,
-          "latency_ms": {"p50": float(np.percentile(lat, 50)) if len(lat) else None,
-                         "p99": float(np.percentile(lat, 99)) if len(lat) else None,
-                         "max": float(lat[-1]) if len(lat) else None},
-          "forwards": len(events), "mean_batch_fill": len(latencies) / max(len(events), 1),
-          "forward_busy_ms": busy_ms, "forward_share_of_wall": busy_ms / 1e3 / wall,
-          "forward_alone_ms": forward_alone_ms, "host_ms_alone": host_ms,
-          "device_share_of_wall": len(events) * forward_alone_ms / 1e3 / wall,
-          "stats": stats, "launches": serve_launches, "failures": failures[:3]})
-    if failures or bad:
-        raise AssertionError(f"serving failed: {failures[:3]}, bad replies {bad[:3]}")
-    if stats != {"served": SERVE_REQUESTS, "errors": 0}:
-        raise AssertionError(f"/stats read {stats} after the last reply")
+    # Every visible card ("cuda": 1 on a one-card machine), then two replicas
+    # on one card at a batch that the rounding raises (33 -> 34): the float32
+    # fold and the bf16 .pt2 against their one-device forwards on the same
+    # rows, with no host sync inside the split forward; then the HTTP server
+    # on the bf16 .pt2 through the two replicas.
+    _, every = build_forward(artifact, SERVE_MAX_BATCH, "cuda")
+    reset_counts()
+    replicas = {}
+    for name, path, limit in (("float32_fold", str(root / "deploy_float32.pth"), SPLIT_REL_LIMIT),
+                              ("bfloat16_pt2", artifact, BF16_REL_LIMIT)):
+        two, two_meta = build_forward(path, TWO_REPLICA_BATCH, devices=TWO_REPLICAS)
+        one, _ = build_forward(path, two_meta["max_batch"], device)
+        batch = np.random.RandomState(5).randint(
+            0, 256, (two_meta["max_batch"], 128, 128, 3)).astype(np.uint8)
+        ref = torch.as_tensor(fetch(one(batch)))
+        two(batch)  # warm-up: cuDNN plans at the shard batch, the pinned block
+        syncs = host_syncs(lambda: two(batch))
+        replicas[name] = {"max_batch": two_meta["max_batch"], "devices": two_meta["devices"],
+                          "rel_err_vs_one_device": rel_err(torch.as_tensor(fetch(two(batch))), ref),
+                          "limit": limit, "host_syncs_in_forward": syncs}
+        if two_meta["max_batch"] != 34 or two_meta["devices"] != 2:
+            raise AssertionError(f"two replicas at {TWO_REPLICA_BATCH}: {two_meta}")
+        if syncs or not replicas[name]["rel_err_vs_one_device"] <= limit:
+            raise AssertionError(f"two replicas ({name}): {replicas[name]}")
+    emit({"phase": "serve", "step": "devices", "every_visible_card": every["devices"],
+          "cuda_device_count": torch.cuda.device_count(), "two_replicas": replicas,
+          "launches": assert_no_launches("split forwards")})
+    two, two_meta = build_forward(artifact, SERVE_MAX_BATCH, devices=TWO_REPLICAS)
+    two_launches = serve_http("http_two_replicas", two, two_meta, artifact, pngs)
 
     # predict over PREDICT_IMAGES PNGs.
     img_dir = root / "predict_in"
@@ -1553,7 +1573,7 @@ def phase_serve(device, gen) -> dict:
     predict_launches = assert_no_launches("predict")
     first = np.stack([predict._load_image(str(img_dir / f"{i:03d}.png"))
                       for i in range(SERVE_MAX_BATCH)]).astype(np.uint8)
-    row = forward(first)[0].float().cpu().numpy()
+    row = fetch(forward(first))[0]
     ply = load_pointcloud(str(root / "predict_out" / "000.ply"))
     ply_err = float(np.abs(ply - row).max() / np.abs(row).max())
     emit({"phase": "serve", "step": "predict", "images": len(written), "batch": SERVE_MAX_BATCH,
@@ -1564,7 +1584,102 @@ def phase_serve(device, gen) -> dict:
         raise AssertionError(f"predict wrote {len(written)} clouds, PLY {ply_err} off its row")
     shutil.rmtree(root)
     return {"export_deploy": export_launches, "serve": serve_launches,
-            "predict": predict_launches}
+            "serve_two_replicas": two_launches, "predict": predict_launches}
+
+
+def serve_http(step: str, forward, meta: dict, artifact: str, pngs: list) -> dict:
+    """make_server on ``forward`` at ``meta["max_batch"]`` and a
+    SERVE_WINDOW_MS window, driven by SERVE_CLIENTS client threads in a
+    process of their own with SERVE_REQUESTS PNG renders: requests/s,
+    latency, batch fill, the forwards' share of the wall, the host's ms a
+    request (each part alone); /stats must count every request the moment
+    the last reply is in. Returns the launch counts of the clients' run."""
+    import threading
+    import urllib.request
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from fenet_torch.serve.batcher import fetch
+    from fenet_torch.serve.server import make_server
+    from fenet_torch.utils.images import normalize_rgb
+
+    max_batch = meta["max_batch"]
+    events = []
+
+    def timed_forward(batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    # Warm-up outside the measured window (cuDNN plans at the serving
+    # batch), then the forward alone, back to back, for the device's share.
+    full = np.zeros((max_batch, 128, 128, 3), np.uint8)
+    fetch(forward(full))
+    forward_alone_ms = cuda_ms(lambda: forward(full), reps=20, warmup=2)
+    # The host's part of a request, each alone in one thread: the forward's
+    # dispatch (the call's host time; the device runs behind it), the PNG
+    # decode and crop, the JSON reply's encoding.
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = forward(full)
+    host_ms = {"forward_dispatch": (time.perf_counter() - t0) / reps * 1e3}
+    cloud = fetch(out)[0]
+    body = pngs[0].read_bytes()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        normalize_rgb(cv2.cvtColor(cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR),
+                                   cv2.COLOR_BGR2RGB))
+    host_ms["png_decode"] = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        json.dumps({"points": cloud.tolist()}).encode()
+    host_ms["json_reply"] = (time.perf_counter() - t0) / reps * 1e3
+    server = make_server(artifact, port=0, max_batch=max_batch, window_ms=SERVE_WINDOW_MS,
+                         forward=timed_forward, meta=meta)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_counts()
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            latencies, wall, bad, failures = pool.submit(
+                serve_clients, url + "/predict", [str(p) for p in pngs], SERVE_CLIENTS,
+                SERVE_REQUESTS // SERVE_CLIENTS, N_POINTS).result()
+        with urllib.request.urlopen(url + "/stats", timeout=30) as r:
+            stats = json.load(r)
+        torch.cuda.synchronize()
+        launches = assert_no_launches("serving")
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+        thread.join(timeout=30)
+    busy_ms = sum(s.elapsed_time(e) for s, e in events)
+    lat = np.sort(np.asarray(latencies)) * 1e3
+    emit({"phase": "serve", "step": step, "artifact": Path(artifact).name,
+          "devices": meta["devices"], "max_batch": max_batch, "window_ms": SERVE_WINDOW_MS,
+          "clients": SERVE_CLIENTS,
+          "requests": len(latencies), "wall_s": wall, "requests_per_s": len(latencies) / wall,
+          "latency_ms": {"p50": float(np.percentile(lat, 50)) if len(lat) else None,
+                         "p99": float(np.percentile(lat, 99)) if len(lat) else None,
+                         "max": float(lat[-1]) if len(lat) else None},
+          "forwards": len(events), "mean_batch_fill": len(latencies) / max(len(events), 1),
+          "forward_busy_ms": busy_ms, "forward_share_of_wall": busy_ms / 1e3 / wall,
+          "forward_alone_ms": forward_alone_ms, "host_ms_alone": host_ms,
+          "device_share_of_wall": len(events) * forward_alone_ms / 1e3 / wall,
+          "stats": stats, "launches": launches, "failures": failures[:3]})
+    if failures or bad:
+        raise AssertionError(f"serving failed: {failures[:3]}, bad replies {bad[:3]}")
+    if stats != {"served": SERVE_REQUESTS, "errors": 0}:
+        raise AssertionError(f"/stats read {stats} after the last reply")
+    return launches
 
 
 def same_batches(a: dict, b: dict) -> bool:
@@ -2100,6 +2215,334 @@ def phase_parallel(device, data: dict) -> dict:
     return paths
 
 
+def phase_goldens(device) -> dict:
+    """record_goldens through its entry point at full width: the eval init
+    saved once as one .pth.tar, a synthetic tree of the 13 ALL_CATS (one
+    model, 24 views each; GOLDENS_EMPTY's files removed, so its row is
+    skipped), 1024 points, batch 64, strict ICP (the CLI's defaults). The
+    counts set to 0 around it: K1 2 and K3 1 a batch. Samples/s of the
+    whole CLI (its checkpoint loads included) and one category's batch
+    split into generator, strict ICP, EMD and chamfer ms. Then that
+    category through the same CLI on the CPU against the card's row: CD
+    to GOLDENS_CD_REL, EMD to GOLDENS_EMD_REL. Returns the tree's paths for
+    phase viz and the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fenet_torch.cli import record_goldens
+    from fenet_torch.cli.eval_shapenet import ALL_CATS
+    from fenet_torch.data.loader import DataLoader
+    from fenet_torch.data.shapenet import ShapeNetDataset, load_split
+    from fenet_torch.data.synthetic import write_synthetic_shapenet
+    from fenet_torch.geometry.icp import align_pred_to_gt
+    from fenet_torch.ops import chamfer, emd
+
+    root = ROOT / "build" / "chip_smoke_goldens"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_synthetic_shapenet(str(root), cats=ALL_CATS, models_per_cat=1, num_points=N_POINTS)
+    for sub in ("ShapeNetRendering", "ShapeNet_pointclouds"):
+        shutil.rmtree(root / sub / GOLDENS_EMPTY)
+    tree_s = time.perf_counter() - t0
+    gen = make_model(device, n=N_POINTS)
+    ckpt = root / "model_best.pth.tar"
+    torch.save({"state_dict": gen.state_dict()}, ckpt)
+    tree = ["--num_points", str(N_POINTS), "--backbone", MODEL["backbone"],
+            "--fine_width", str(MODEL["fine_width"]), "--mid_width", str(MODEL["mid_width"]),
+            "--splits_path", str(root / "splits"),
+            "--data_dir_imgs", str(root / "ShapeNetRendering"),
+            "--data_dir_pcl", str(root / "ShapeNet_pointclouds"), "--torch_model", str(ckpt)]
+    reset_counts()
+    t0 = time.perf_counter()
+    table = record_goldens.main(tree + ["--device", str(device), "--batchSize", str(BATCH),
+                                        "--out", str(root / "goldens_card.json")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    recorded = [c for c in ALL_CATS if c != GOLDENS_EMPTY]
+    batches = len(recorded) * -(-24 // BATCH)
+    want = {"chamfer_nn": 2 * batches, "emd_auction": batches, "emd_auction_stream": 0,
+            "sinkhorn": 0}
+    if launches != want:
+        raise AssertionError(f"record_goldens launched {launches}, not {want}")
+    rows = table["categories"]
+    if table["skipped"] != [GOLDENS_EMPTY] or not all(
+            rows[c]["samples"] == 24 and np.isfinite(rows[c]["cd"]) and np.isfinite(rows[c]["emd"])
+            for c in recorded):
+        raise AssertionError(f"record_goldens table is wrong: {table}")
+
+    # One category's batch, timed stage by stage in the CLI's strict mode.
+    cat = recorded[0]
+    ds = ShapeNetDataset(str(root / "ShapeNetRendering"), str(root / "ShapeNet_pointclouds"),
+                         load_split(str(root / "splits"), "val_models.json"), [cat], N_POINTS,
+                         check_exists=True, image_dtype="uint8")
+    batch = next(iter(DataLoader(ds, BATCH, prefetch=0)))
+    images = torch.as_tensor(batch["image"]).to(device)
+    points = torch.as_tensor(batch["points"]).to(device)
+    phases = {}
+    timed = functools.partial(timed_ms, phases)
+    with torch.inference_mode():
+        pred = timed("generator_ms", lambda: gen(images)[2])
+        aligned = timed("icp_ms", lambda: align_pred_to_gt(
+            pred, points, max_iterations=1024, rel_tolerance=0.0, stall_patience=0))
+        timed("emd_ms", lambda: emd.earth_mover_distance(aligned, points))
+        timed("chamfer_ms", lambda: chamfer.chamfer_distance(aligned, points))
+
+    # Where a card-vs-CPU gap comes from: the generator on the same images,
+    # and strict ICP on the same (the card's) predictions.
+    host_gen = copy.deepcopy(gen).cpu()
+    with torch.inference_mode():
+        host_pred = host_gen(images.cpu())[2]
+        host_aligned = align_pred_to_gt(pred.cpu(), points.cpu(), max_iterations=1024,
+                                        rel_tolerance=0.0, stall_patience=0)
+    del host_gen
+    stages = {"generator_rel_err": rel_err(pred.cpu(), host_pred),
+              "icp_same_input_max_abs_err": float((aligned.cpu() - host_aligned).abs().max())}
+    t0 = time.perf_counter()
+    host = record_goldens.main(tree + ["--device", "cpu", "--cats", cat,
+                                       "--out", str(root / "goldens_cpu.json")])
+    cpu_s = time.perf_counter() - t0
+    checks = {"cd_rel_err": abs(rows[cat]["cd"] - host["categories"][cat]["cd"])
+              / host["categories"][cat]["cd"],
+              "emd_rel_err": abs(rows[cat]["emd"] - host["categories"][cat]["emd"])
+              / host["categories"][cat]["emd"]}
+    limits = {"cd_rel_err": GOLDENS_CD_REL, "emd_rel_err": GOLDENS_EMD_REL}
+    samples = sum(rows[c]["samples"] for c in recorded)
+    emit({"phase": "goldens", "model": model_name(N_POINTS), "cats": len(ALL_CATS),
+          "recorded": len(recorded), "skipped": table["skipped"], "batch": BATCH,
+          "batches": batches, "samples": samples, "wall_s": wall,
+          "samples_per_s": samples / wall, "tree_s": tree_s, "launches": launches,
+          "settings": table["settings"], "mean_cd": table["mean_cd"],
+          "mean_emd": table["mean_emd"], "strict_batch_phase_ms": {"samples": len(pred), **phases},
+          "icp_share": phases["icp_ms"] / sum(phases.values()),
+          "card_vs_cpu": {"category": cat, "samples": host["categories"][cat]["samples"],
+                          "card": rows[cat], "cpu": host["categories"][cat], "cpu_s": cpu_s,
+                          **checks, "stages_on_identical_inputs": stages},
+          "limits": limits})
+    for key, limit in limits.items():
+        if not checks[key] <= limit:
+            raise AssertionError(f"record_goldens card vs CPU {key} = {checks[key]} > {limit}")
+    return {"root": root, "ckpt": ckpt, "cats": recorded, "dataset": ds, "launches": launches}
+
+
+def phase_analysis(device, pred, gt) -> dict:
+    """fscore on the eval phase's aligned clouds against the CPU (K1 2 a
+    call, the counts set to 0 around it); the dense auction above the
+    kernels' 8192 points (earth_mover_distance at DENSE_SHAPE, eval
+    settings, dyadic clouds) against the CPU, bit for bit: its calls counted
+    apart, no kernel launch, its time and peak memory; profiling.trace over one eval
+    step, with the CUDA kernel events of the trace it writes. Returns each
+    path's launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fenet_torch.eval.runner import make_eval_step
+    from fenet_torch.losses.fscore import fscore
+    from fenet_torch.ops import emd
+    from fenet_torch.utils import profiling
+
+    out = {}
+    scores = {}
+    n = pred.shape[1]
+    for threshold in FSCORE_THRESHOLDS:
+        reset_counts()
+        card = [float(v) for v in fscore(pred, gt, threshold)]
+        out["fscore"] = launch_counts()
+        host = [float(v) for v in fscore(pred.cpu(), gt.cpu(), threshold)]
+        gap = max(abs(a - b) for a, b in zip(card, host))
+        scores[str(threshold)] = {"card": card, "cpu": host, "max_abs_err": gap}
+        # A nearest distance on the threshold may round to the other side:
+        # one point of N an element moves a mean fraction by 1/N.
+        if out["fscore"]["chamfer_nn"] != 2 or not gap <= 1.0 / n:
+            raise AssertionError(f"fscore at {threshold}: {scores}, {out['fscore']}")
+    emit({"phase": "analysis", "step": "fscore", "B": pred.shape[0], "N": n, "scores": scores,
+          "limit": 1.0 / n, "launches": out["fscore"]})
+
+    b, n = DENSE_SHAPE
+    rng = np.random.RandomState(11)
+    x1, x2 = (clouds("dyadic", rng, device, (b, n, 3)) for _ in range(2))
+    calls = emd.earth_mover_distance_ref.calls
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    d_card, a_card = emd.earth_mover_distance(x1, x2)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    out["dense_auction"] = assert_no_launches("dense auction")
+    t0 = time.perf_counter()
+    d_host, a_host = emd.earth_mover_distance(x1.cpu(), x2.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    m_card, m_host = float(d_card.sqrt().mean()), float(d_host.sqrt().mean())
+    dense = {"B": b, "N": n, "eps": 0.005, "iters": 50,
+             "calls": emd.earth_mover_distance_ref.calls - calls, "card_ms": card_ms,
+             "cpu_ms": cpu_ms, "peak_bytes_above_inputs": peak,
+             "emd_metric_rel_err": abs(m_card - m_host) / m_host, "limit": 1e-2,
+             "assignment_equal_share": float((a_card.cpu() == a_host).float().mean()),
+             "bit_exact": bool(torch.equal(d_card.cpu(), d_host)
+                               and torch.equal(a_card.cpu(), a_host))}
+    emit({"phase": "analysis", "step": "dense_auction", **dense, "launches": out["dense_auction"]})
+    # Dyadic clouds make every value exact on both devices, so the two runs
+    # must agree bit for bit.
+    if dense["calls"] != 2 or not dense["bit_exact"] or not dense["emd_metric_rel_err"] <= 1e-2:
+        raise AssertionError(f"the dense auction: {dense}")
+
+    gen = make_model(device, n=N_POINTS)
+    step = make_eval_step(gen, device=device)
+    images = torch.zeros((gt.shape[0], 128, 128, 3), dtype=torch.uint8, device=device)
+    step(images, gt)  # warm-up
+    log_dir = ROOT / "build" / "chip_smoke_trace"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with profiling.trace(str(log_dir)):
+        step(images, gt)
+        torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    files = sorted(log_dir.iterdir())
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    emit({"phase": "analysis", "step": "trace",
+          "path": f"eval step (batch {gt.shape[0]}, N={gt.shape[1]})",
+          "files": [f.name for f in files], "bytes": files[0].stat().st_size,
+          "events": len(events), "cuda_kernel_events": kernels, "traced_ms": traced_ms,
+          "synced_seconds": profiling.synced_seconds(step, images, gt, iters=2)})
+    if len(files) != 1 or not kernels:
+        raise AssertionError(f"profiling.trace wrote {files}, {kernels} kernel events")
+    shutil.rmtree(log_dir)
+    return out
+
+
+def phase_viz(device, goldens: dict) -> dict:
+    """The pictures at full width on phase goldens' tree and checkpoint
+    (deleted after): cli/render plain and --deploy, cli/render_pix3d on a
+    synthetic Pix3D tree (its skip rule on a second run) and cli/heatmap
+    without and with --layer, each with the counts set to 0 around it (no
+    kernel lies on these paths). matplotlib is looked up first: without it
+    the two render CLIs are not run, their clouds' forwards are, and the
+    line says so. Then Grad-CAM on the card against the CPU on one image
+    (GRADCAM_ATOL), and SimpleGenerator's forward card against CPU (1e-4 of
+    max|ref|)."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fenet_torch.cli import heatmap, render, render_pix3d
+    from fenet_torch.cli.eval_pix3d import PIX3D_TO_SHAPENET
+    from fenet_torch.data.loader import DataLoader
+    from fenet_torch.data.synthetic import write_synthetic_pix3d
+    from fenet_torch.models.convert import load_reference_checkpoint
+    from fenet_torch.models.generator import SimpleGenerator, init_random_
+    from fenet_torch.viz.gradcam import grad_cam
+
+    root = goldens["root"]
+    for cat in goldens["cats"]:
+        path = root / "out" / cat / "checkpoints" / "model_best.pth.tar"
+        path.parent.mkdir(parents=True)
+        path.symlink_to(goldens["ckpt"])
+    arch = ["--num_points", str(N_POINTS), "--backbone", MODEL["backbone"],
+            "--fine_width", str(MODEL["fine_width"]), "--mid_width", str(MODEL["mid_width"]),
+            "--model", str(root / "out" / "%s" / "checkpoints"), "--device", str(device)]
+    shapenet = ["--category", goldens["cats"][0], "--splits_path", str(root / "splits"),
+                "--data_dir_imgs", str(root / "ShapeNetRendering"),
+                "--data_dir_pcl", str(root / "ShapeNet_pointclouds"), "--n_samples", "2"]
+    write_synthetic_pix3d(str(root / "pix3d"), cats=tuple(PIX3D_TO_SHAPENET), samples_per_cat=3,
+                          num_points=N_POINTS)
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    runs, launches = {}, {}
+
+    def run(name, fn, outdir):
+        reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "files": sorted(str(p.relative_to(outdir)) for p in outdir.rglob("*.png"))
+                      if outdir.exists() else [], "result": result}
+        launches[name] = assert_no_launches(name)
+
+    for layer in ([], ["--layer", "stage3"]):
+        run("heatmap" + "".join(layer[1:]), lambda: heatmap.main(
+            arch + shapenet + layer + ["--out_dir", str(root / "heatmaps")]), root / "heatmaps")
+    if matplotlib:
+        for deploy in ([], ["--deploy"]):
+            out = root / "renders" / ("deploy" if deploy else "plain")
+            run("render" + "".join(deploy), lambda: render.main(
+                arch + shapenet + deploy + ["--out_dir", str(out)]), out)
+        pix3d = arch + ["--data_dir", str(root / "pix3d"), "--n_samples", "2",
+                        "--out_dir", str(root / "pix3d_renders")]
+        run("render_pix3d", lambda: render_pix3d.main(pix3d), root / "pix3d_renders")
+        (root / "pix3d_renders" / "chair" / "0001_pr.png").unlink()
+        run("render_pix3d_again", lambda: render_pix3d.main(pix3d), root / "pix3d_renders")
+        want = {"heatmap": 2, "heatmapstage3": 4, "render": 2, "render--deploy": 2,
+                "render_pix3d": 12, "render_pix3d_again": 18}
+        if runs["render_pix3d_again"]["result"] != {"sofa": 1, "table": 1, "chair": 2}:
+            raise AssertionError(f"render_pix3d's skip rule: {runs['render_pix3d_again']}")
+    else:
+        # The render CLIs' clouds without their pictures: the checkpoint's
+        # generator on the category's first two samples.
+        gen = load_reference_checkpoint(make_model(device, n=N_POINTS), str(goldens["ckpt"]))
+        first = next(iter(DataLoader(goldens["dataset"], 2, prefetch=0)))
+
+        def forwards():
+            with torch.inference_mode():
+                return [list(c.shape) for c in gen(torch.as_tensor(first["image"]).to(device))]
+
+        run("render_forwards", forwards, root / "none")
+        del gen
+        want = {"heatmap": 2, "heatmapstage3": 4, "render_forwards": 0}
+    for name, count in want.items():
+        if len(runs[name]["files"]) != count:
+            raise AssertionError(f"{name} wrote {runs[name]['files']}, not {count} files")
+    for name in runs:
+        runs[name]["files"] = len(runs[name]["files"])
+
+    gen = make_model(device, n=N_POINTS)
+    image = np.random.RandomState(12).randint(0, 256, (1, 128, 128, 3)).astype(np.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    cam = grad_cam(gen, image)
+    torch.cuda.synchronize()
+    cam_ms = (time.perf_counter() - t0) * 1e3
+    launches["grad_cam"] = assert_no_launches("grad_cam")
+    host_gen = copy.deepcopy(gen).cpu()
+    cams = {"final": (cam, grad_cam(host_gen, image)),
+            "stage3": (grad_cam(gen, image, layer="stage3"),
+                       grad_cam(host_gen, image, layer="stage3"))}
+    cam_err = {k: float(np.abs(a - b).max()) for k, (a, b) in cams.items()}
+    del gen, host_gen
+
+    with torch.device(device):
+        simple = SimpleGenerator(num_points=N_POINTS, backbone=MODEL["backbone"])
+    simple = init_random_(simple, torch.Generator(device=device).manual_seed(3)).eval()
+    images = torch.tensor(np.random.RandomState(13).randint(0, 256, (4, 128, 128, 3)),
+                          dtype=torch.uint8, device=device)
+    with torch.inference_mode():
+        got = simple(images)
+        ref = copy.deepcopy(simple).cpu()(images.cpu())
+    simple_err = rel_err(got.cpu(), ref)
+    checks = {"grad_cam_max_abs_err": max(cam_err.values()), "simple_generator_rel_err": simple_err}
+    limits = {"grad_cam_max_abs_err": GRADCAM_ATOL, "simple_generator_rel_err": 1e-4}
+    emit({"phase": "viz", "model": model_name(N_POINTS),
+          "render": "matplotlib installed" if matplotlib else "matplotlib not installed",
+          "runs": runs, "launches": launches, "grad_cam_ms": cam_ms,
+          "grad_cam_card_vs_cpu": cam_err, "simple_generator": {
+              "out": list(got.shape), "abs_max": float(got.abs().max())},
+          "checks": checks, "limits": limits})
+    for key, limit in limits.items():
+        if not checks[key] <= limit:
+            raise AssertionError(f"viz card vs CPU {key} = {checks[key]} > {limit}")
+    shutil.rmtree(root)
+    return {name: counts for name, counts in launches.items()}
+
+
 def phase_timing(launches, pred, gt, train):
     """The kernels line. K1 and K3 on the eval path's inputs (the first eval
     batch: aligned predictions vs gt) at the eval settings; K5 and K6/K7 on
@@ -2328,22 +2771,29 @@ def main() -> int:
     launches, pred, gt = phase_eval(device)
     train = phase_train(device)
     rows = phase_timing(launches, pred, gt, train)
+    analysis = phase_analysis(device, pred, gt)
     pix3d = phase_pix3d(device)
     gen, deploy_launches = phase_deploy(device)
     serving = {"deploy": deploy_launches, **phase_serve(device, gen)}
     del gen
     data = phase_data(device, train["auction"]["step_ms"])
     parallel = phase_parallel(device, data)
+    goldens = phase_goldens(device)
+    viz = phase_viz(device, goldens)
     launches, pred, gt = phase_eval(device, WIDE_POINTS)
     train_wide = phase_train(device, WIDE_POINTS)
     rows += phase_timing_wide(launches, pred, gt, train_wide)
-    # The launches of the finetune, finetune_net, pix3d, data and parallel
-    # phases (the ranks' counts), beside each kernel's main-path count.
+    # The launches of the finetune, finetune_net, pix3d, data, parallel,
+    # analysis, goldens and viz phases (the ranks' counts; fscore's a call,
+    # goldens' a run of 12 batches), beside each kernel's main-path count.
     new_paths = {"finetune": train["finetune"], "finetune_wide": train_wide["finetune"],
                  "finetune_net": train["finetune_net"], "pix3d": pix3d,
                  "data_prepare_data": data["prepare_data"],
                  "data_train_net_native": data["native"],
-                 "data_train_net_per_item": data["per_item"], **parallel}
+                 "data_train_net_per_item": data["per_item"], **parallel,
+                 "fscore": analysis["fscore"], "dense_auction": analysis["dense_auction"],
+                 "goldens": goldens["launches"],
+                 **{f"viz_{name}": counts for name, counts in viz.items()}}
     for row in rows:
         if row["name"] in ("chamfer_nn", "emd_auction", "emd_auction_stream"):
             row["launches_new_paths"] = {path: counts[row["name"]]

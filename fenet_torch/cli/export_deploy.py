@@ -25,7 +25,7 @@ import os
 import torch
 
 from fenet_torch.models.convert import load_reference_checkpoint
-from fenet_torch.models.generator import Generator, to_deploy
+from fenet_torch.models.generator import Generator, deploy_from_state, to_deploy
 from fenet_torch.train.checkpoint import BEST
 from fenet_torch.utils.device import resolve_device
 
@@ -100,9 +100,8 @@ def load_deploy_checkpoint(path: str, device="cuda"):
         meta = json.load(f)
     dtype = DTYPES[meta.get("dtype", "float32")]
     state = torch.load(path, map_location="cpu", weights_only=True)
-    with torch.device("meta"):
-        gen = Generator(**{k: meta[k] for k in _SIDECAR_KEYS}, deploy=True)
-    gen.load_state_dict({k: v.to(dtype) for k, v in state.items()}, strict=True, assign=True)
+    gen = deploy_from_state({k: meta[k] for k in _SIDECAR_KEYS},
+                            {k: v.to(dtype) for k, v in state.items()})
     return gen.to(device=device, dtype=dtype).eval(), dtype
 
 

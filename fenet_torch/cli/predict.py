@@ -54,7 +54,9 @@ def main(argv=None):
     parser.add_argument("--ply_binary", action="store_true",
                         help="write binary little-endian PLY instead of ascii")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device ('cpu' runs on the host)")
+                        help="torch device: 'cuda' serves over every visible card "
+                             "(the batch rounded up to the card count and split), "
+                             "'cuda:1' on that card alone, 'cpu' on the host")
     opt = parser.parse_args(argv)
 
     paths = _image_paths(opt.images)

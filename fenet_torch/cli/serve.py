@@ -1,4 +1,4 @@
-"""Serve a deploy checkpoint or artifact over HTTP on one device (see
+"""Serve a deploy checkpoint or artifact over HTTP on every visible card (see
 ``fenet_torch.serve``; counterpart of ``fenet/cli/serve.py``, plus
 ``--device``).
 
@@ -34,7 +34,9 @@ def main(argv=None):
     parser.add_argument("--window_ms", type=float, default=5.0,
                         help="micro-batching window; 0 = dispatch immediately")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device ('cpu' runs on the host)")
+                        help="torch device: 'cuda' serves over every visible card "
+                             "(the batch rounded up to the card count and split), "
+                             "'cuda:1' on that card alone, 'cpu' on the host")
     opt = parser.parse_args(argv)
 
     from fenet_torch.serve.server import make_server
@@ -44,8 +46,8 @@ def main(argv=None):
     server = make_server(opt.deploy_ckpt, host=opt.host, port=opt.port,
                          max_batch=opt.max_batch, window_ms=opt.window_ms,
                          device=opt.device)
-    logger.info("serving %s on http://%s:%d (max_batch=%d, %s)", opt.deploy_ckpt,
-                opt.host, server.server_address[1], opt.max_batch, server.meta)
+    logger.info("serving %s on http://%s:%d (%s)", opt.deploy_ckpt,
+                opt.host, server.server_address[1], server.meta)
 
     def _term(signum, frame):
         raise KeyboardInterrupt

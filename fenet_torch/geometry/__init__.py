@@ -1,7 +1,12 @@
-"""Geometry on tensors: ICP, cloud normalisation and the differentiable
-silhouette projection (counterpart of ``fenet/geometry``)."""
+"""Geometry: ICP, cloud normalisation and the differentiable silhouette
+projection on tensors, and the Blender camera math in numpy (``camera``)
+(counterpart of ``fenet/geometry``).
 
-from fenet_torch.geometry.icp import batched_icp
+fenet also exports its single-cloud ``icp`` function here; in the port that
+name stays the ``icp`` module, which callers import as such, and the
+function is ``fenet_torch.geometry.icp.icp``."""
+
+from fenet_torch.geometry.icp import batched_icp, best_fit_transform
 from fenet_torch.geometry.pointcloud import (
     average_pcl,
     normalize_to_unit_cube,
@@ -23,6 +28,7 @@ __all__ = [
     "apply_kernel",
     "average_pcl",
     "batched_icp",
+    "best_fit_transform",
     "cont_proj",
     "disc_proj",
     "normalize_to_unit_cube",

@@ -1,5 +1,6 @@
-"""Batched ICP in plain PyTorch (counterpart of ``fenet/geometry/icp.py``,
-the natively batched solver of the eval path).
+"""ICP in plain PyTorch (counterpart of ``fenet/geometry/icp.py``): the
+single-pair solver with its SVD best fit (the reference's utils/icp.py), and
+the natively batched solver of the eval path.
 
 Correspondence is a brute-force argmin over the pairwise distance matrix;
 the best-fit rotation is Horn's quaternion method with the dominant
@@ -14,6 +15,44 @@ from __future__ import annotations
 import torch
 
 from fenet_torch.ops.pairwise import pairwise_sqdist
+
+
+def best_fit_transform(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Least-squares rigid transform mapping corresponding points a -> b,
+    (N, 3) each: the 4x4 homogeneous T from the SVD of the covariance, with
+    the reference's reflection fix (the last row of Vt negated where
+    det(R) < 0)."""
+    ca, cb = a.mean(dim=0), b.mean(dim=0)
+    h = (a - ca).T @ (b - cb)
+    u, _, vt = torch.linalg.svd(h)
+    r = vt.T @ u.T
+    flip = torch.ones(3, dtype=a.dtype, device=a.device)
+    flip[-1] = -1.0
+    r = torch.where(torch.linalg.det(r) < 0, (vt * flip[:, None]).T @ u.T, r)
+    out = torch.eye(4, dtype=a.dtype, device=a.device)
+    out[:3, :3] = r
+    out[:3, 3] = cb - r @ ca
+    return out
+
+
+def icp(a: torch.Tensor, b: torch.Tensor, max_iterations: int = 20,
+        tolerance: float = 0.001):
+    """Single-pair ICP, a and b (N, 3): ``(T 4x4 mapping a onto b, the final
+    nearest-neighbour distances (N,), iterations run)``. Stops when the
+    mean distance changes by less than ``tolerance``; T is refit from ``a``
+    to the converged source, as the reference does (icp.py:100-117)."""
+    src, prev_err, it = a, torch.zeros((), dtype=a.dtype, device=a.device), 0
+    while it < max_iterations:
+        dist, idx = _nn_batched(src[None], b[None])
+        t = best_fit_transform(src, b[idx[0]])
+        src = src @ t[:3, :3].T + t[:3, 3]
+        err = dist.mean()
+        it += 1
+        if bool((prev_err - err).abs() < tolerance):
+            break
+        prev_err = err
+    dist, _ = _nn_batched(src[None], b[None])
+    return best_fit_transform(a, src), dist[0], it
 
 
 def _quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

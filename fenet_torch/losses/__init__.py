@@ -1,5 +1,6 @@
-"""Training losses: the chamfer/EMD facade, the Sinkhorn loss and the
-silhouette projection loss (counterpart of ``fenet/losses``)."""
+"""Training losses: the chamfer/EMD facade, the Sinkhorn loss, the
+silhouette projection loss and the F-score (counterpart of
+``fenet/losses``)."""
 
 from fenet_torch.losses.facade import (
     Loss,
@@ -9,6 +10,7 @@ from fenet_torch.losses.facade import (
     point_loss_test,
     scheduled_total_loss,
 )
+from fenet_torch.losses.fscore import fscore
 from fenet_torch.losses.projection import get_loss_proj, grid_dist
 from fenet_torch.losses.sinkhorn import batch_emd_loss, sinkhorn_distance
 
@@ -17,6 +19,7 @@ __all__ = [
     "batch_emd_loss",
     "chamfer_loss",
     "emd_loss",
+    "fscore",
     "get_loss_proj",
     "grid_dist",
     "point_loss",

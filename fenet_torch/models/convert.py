@@ -1,9 +1,9 @@
 """Weights into the port: fenet's JAX variables and the reference's
 ``.pth.tar`` checkpoints.
 
-``state_dict_from_jax`` takes fenet's ``{"params", "batch_stats"}`` as nested
-dicts of numpy arrays and returns the port's state_dict, whose names are the
-reference's:
+``state_dict_from_jax`` takes fenet's ``{"params", "batch_stats"}`` of a
+``Generator`` or a ``SimpleGenerator`` as nested dicts of numpy arrays and
+returns the port's state_dict, whose names are the reference's:
 
 - conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw);
 - Dense kernel (I, O) -> weight (O, I); a decoder ``conv*`` Dense, which is
@@ -54,6 +54,8 @@ def _module(path: Tuple[str, ...]) -> Optional[str]:
         return f"{name}.{0 if kind == 'conv' else 1}"
     if top == "decoder":
         return rest[0]
+    if top in ("fc1", "fc2", "fc3") and not rest:  # SimpleGenerator's head
+        return top
     return None
 
 

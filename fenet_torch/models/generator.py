@@ -42,9 +42,16 @@ _EDGE_KERNEL = np.array(
 ) / 3.0
 
 
+def edge_kernel() -> torch.Tensor:
+    """The (3, 3, 3, 3) broadcast of ``_EDGE_KERNEL`` as float32, made on the
+    default device, so a model built under ``torch.device(...)`` holds it
+    there with its parameters."""
+    return torch.tensor(np.broadcast_to(_EDGE_KERNEL, (3, 3, 3, 3)))
+
+
 def edge_conv2d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Fixed edge-detection conv on NCHW (B, 3, H, W); ``kernel`` is the
-    (3, 3, 3, 3) broadcast of ``_EDGE_KERNEL``."""
+    :func:`edge_kernel`."""
     return F.conv2d(x, kernel, padding=1)
 
 
@@ -151,21 +158,61 @@ class Generator(nn.Module):
         for part in self._parts:
             for name, child in part.named_children():
                 self.add_module(name, child)
-        kernel = torch.from_numpy(np.broadcast_to(_EDGE_KERNEL, (3, 3, 3, 3)).copy())
-        self.register_buffer("edge_kernel", kernel, persistent=False)
+        self.register_buffer("edge_kernel", edge_kernel(), persistent=False)
 
     @property
     def decoder(self) -> CascadedDecoder:
         return self._parts[1]
 
     def forward(self, images: torch.Tensor):
-        # The parameters' dtype, so that a bf16 fold computes in bf16; the
-        # edge kernel buffer is cast with them.
-        x = images.to(self.fc1.weight.dtype).permute(0, 3, 1, 2).contiguous()
+        x = _nchw(images, self.fc1.weight.dtype)
+        return self._decode(self.RepVGG.forward_features(x), x)
+
+    def decode(self, feature_map: torch.Tensor, images: torch.Tensor):
+        """The path from a backbone feature map (B, C, h, w) on, with the
+        (B, H, W, 3) images for the edge branch: Grad-CAM's re-entry point.
+        ``decode(RepVGG.forward_features(x), images)`` is ``forward``."""
+        return self._decode(feature_map, _nchw(images, self.fc1.weight.dtype))
+
+    def _decode(self, feature_map: torch.Tensor, x: torch.Tensor):
         edge_branch, decoder = self._parts
-        feat = self.RepVGG(x)
+        feat = self.RepVGG.head(feature_map)
         edge = edge_branch(x, self.edge_kernel)
         return decoder(torch.cat([feat, edge], dim=1))
+
+
+def _nchw(images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, W, 3) images -> NCHW in the parameters' dtype, so that a bf16
+    fold computes in bf16 (the edge kernel buffer is cast with them)."""
+    return images.to(dtype).permute(0, 3, 1, 2).contiguous()
+
+
+class SimpleGenerator(nn.Module):
+    """The reference's older single-head variant (counterpart of fenet's
+    ``SimpleGenerator``): the same backbone and edge branch, then FC 2000 ->
+    512 -> 1024 -> num_points·3 with LeakyReLU(0.01) and a final Tanh.
+    ``forward(images) -> (B, num_points, 3)``. State_dict names as the
+    Generator's: ``RepVGG.*``, ``edge0.*``, ``edge2.*``, ``linear``, ``fc1``
+    ... ``fc3``."""
+
+    def __init__(self, num_points: int = 1024, backbone: str = "RepVGG-A2"):
+        super().__init__()
+        self.num_points, self.backbone = num_points, backbone
+        self.RepVGG = RepVGG(REPVGG_CONFIGS[backbone])
+        self._edge = (EdgeBranch(),)
+        for name, child in self._edge[0].named_children():
+            self.add_module(name, child)
+        self.fc1 = nn.Linear(2000, 512)
+        self.fc2 = nn.Linear(512, 1024)
+        self.fc3 = nn.Linear(1024, num_points * 3)
+        self.register_buffer("edge_kernel", edge_kernel(), persistent=False)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        x = _nchw(images, self.fc1.weight.dtype)
+        h = torch.cat([self.RepVGG(x), self._edge[0](x, self.edge_kernel)], dim=1)
+        h = F.leaky_relu(self.fc1(h), 0.01)
+        h = F.leaky_relu(self.fc2(h), 0.01)
+        return torch.tanh(self.fc3(h)).reshape(images.shape[0], self.num_points, 3)
 
 
 def fold_generator_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -193,12 +240,22 @@ def to_deploy(model: Generator, dtype: Optional[torch.dtype] = None) -> Generato
     fold: for serving, not for metrics."""
     # Copies: the weights the fold passes through must not alias the model's.
     sd = {k: v.detach().to(torch.float32, copy=True) for k, v in model.state_dict().items()}
+    arch = dict(num_points=model.num_points, backbone=model.backbone,
+                fine_width=model.fine_width, mid_width=model.mid_width)
+    deploy = deploy_from_state(arch, fold_generator_params(sd))
+    return deploy.to(dtype=dtype).eval()
+
+
+def deploy_from_state(arch: Mapping, sd: Mapping[str, torch.Tensor]) -> Generator:
+    """``Generator(**arch, deploy=True)`` holding ``sd``'s tensors as they
+    are, with no init: built on the meta device, the state assigned, and
+    the edge kernel, which no state_dict holds, made beside them."""
     with torch.device("meta"):
-        deploy = Generator(model.num_points, model.backbone, model.fine_width,
-                           model.mid_width, deploy=True)
-    deploy.load_state_dict(fold_generator_params(sd), strict=True, assign=True)
-    deploy.to(device=sd["fc1.weight"].device, dtype=dtype)
-    return deploy.eval()
+        gen = Generator(**arch, deploy=True)
+    gen.load_state_dict(sd, strict=True, assign=True)
+    with torch.device(sd["fc1.weight"].device):
+        gen.edge_kernel = edge_kernel()
+    return gen
 
 
 @torch.no_grad()

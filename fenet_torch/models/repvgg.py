@@ -221,6 +221,51 @@ class RepVGG(nn.Module):
             x = getattr(self, name)(x)
         return x
 
+    def _blocks(self) -> List[Tuple[str, RepVGGBlock]]:
+        """(fenet's block name, block) in order: ``stage0``, then
+        ``stage{i}_{j}``, the j-th block of the ``stage{i}`` Sequential."""
+        out = [("stage0", self.stage0)]
+        for name, _, _, _ in _stage_plan(self.config)[1:]:
+            stage, index = name.split("_")
+            out.append((name, getattr(self, stage)[int(index)]))
+        return out
+
+    def block_names(self) -> List[str]:
+        """Ordered block names: the valid Grad-CAM ``layer`` targets."""
+        return [name for name, _, _, _ in _stage_plan(self.config)]
+
+    def resolve_block(self, layer: str) -> str:
+        """A layer spec as a block name: an exact block name, or a stage
+        prefix ('stage2') meaning that stage's last block."""
+        names = self.block_names()
+        if layer in names:
+            return layer
+        in_stage = [n for n in names if n.startswith(layer + "_")]
+        if in_stage:
+            return in_stage[-1]
+        raise ValueError(f"unknown layer {layer!r}; valid: {names} or a stage prefix")
+
+    def features_up_to(self, x: torch.Tensor, layer: str) -> torch.Tensor:
+        """The conv stages through block ``layer`` inclusive: the feature
+        map Grad-CAM differentiates against."""
+        layer = self.resolve_block(layer)
+        for name, block in self._blocks():
+            x = block(x)
+            if name == layer:
+                return x
+        raise AssertionError(layer)  # unreachable after resolve_block
+
+    def features_from(self, x: torch.Tensor, layer: str) -> torch.Tensor:
+        """The conv stages after block ``layer`` -> the final feature map
+        (the re-entry point for a mid-network CAM)."""
+        layer = self.resolve_block(layer)
+        seen = False
+        for name, block in self._blocks():
+            if seen:
+                x = block(x)
+            seen = seen or name == layer
+        return x
+
     def head(self, feature_map: torch.Tensor) -> torch.Tensor:
         """Global average pool + classifier."""
         return self.linear(feature_map.mean(dim=(2, 3)))
@@ -278,6 +323,37 @@ def fold_block(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.T
     out = {prefix + "rbr_reparam.weight": kernel, prefix + "rbr_reparam.bias": bias}
     out.update({k: v for k, v in sd.items() if k.startswith(prefix + "se.")})
     return out
+
+
+def block_custom_l2(sd: Mapping[str, torch.Tensor], prefix: str = "") -> torch.Tensor:
+    """The RepVGG custom weight-decay term of the branched block under
+    ``prefix`` (the reference's ``get_custom_L2``): plain L2 on the 3x3
+    kernel's ring, plus L2 of the BN-equivalent fused centre normalised by
+    t3² + t1². The BN factors are detached, as the reference's."""
+    k3 = sd[prefix + _BRANCH]
+    k1 = sd[prefix + "rbr_1x1.conv.weight"]
+
+    def factor(bn: str) -> torch.Tensor:
+        t = sd[prefix + bn + "weight"] / torch.sqrt(sd[prefix + bn + "running_var"] + _BN_EPS)
+        return t.detach()[:, None, None, None]
+
+    t3, t1 = factor("rbr_dense.bn."), factor("rbr_1x1.bn.")
+    centre = k3[:, :, 1:2, 1:2]
+    l2_ring = (k3 ** 2).sum() - (centre ** 2).sum()
+    eq_centre = centre * t3 + k1 * t1
+    return (eq_centre ** 2 / (t3 ** 2 + t1 ** 2)).sum() + l2_ring
+
+
+def model_custom_l2(model) -> torch.Tensor:
+    """:func:`block_custom_l2` summed over every branched RepVGG block of a
+    state_dict, or of a module (differentiable in its parameters)."""
+    if isinstance(model, nn.Module):
+        model = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    total = torch.zeros((), dtype=torch.float32)
+    for key in model:
+        if key.endswith(_BRANCH):
+            total = total + block_custom_l2(model, key[:-len(_BRANCH)])
+    return total
 
 
 def fold_repvgg_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

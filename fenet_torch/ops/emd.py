@@ -25,17 +25,20 @@ ties). When they are skipped the result is the fixed-eps auction's.
 kernel runs every iteration, as the reference driver does. The iterations
 after that point change nothing, so the results are the same either way.
 
-For CPU tensors the wrapper runs the plain version :func:`_auction_plain`,
-for any N; for CUDA tensors it launches the kernel of
-``csrc/emd_auction.cu`` (:func:`auction_kernel`) for N <= 8192, through its
-resident entry point for N <= 1024 and its streaming one above, and raises
-for larger N (fenet runs its XLA auction there; the port has no plain
-fallback on the card). Odd N runs as it is: no padding.
+For N <= 8192 the wrapper runs the plain version :func:`_auction_plain`
+on CPU tensors and launches the kernel of ``csrc/emd_auction.cu``
+(:func:`auction_kernel`) on CUDA tensors, through its resident entry point
+for N <= 1024 and its streaming one above. Odd N runs as it is: no padding.
+Above 8192 points, where fenet's Pallas kernel declines and fenet runs its
+XLA auction, the op runs :func:`earth_mover_distance_ref`, the same dense
+auction in plain torch on either device, and logs so once per N. The choice
+is by N alone; the kernel wrapper itself raises above 8192.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import torch
 
@@ -56,6 +59,10 @@ SHARED_KEYS_MAX_N = 6400
 # Eps-scaling phases the kernel takes (its phase table is a fixed array).
 MAX_PHASES = 8
 SCALE_FACTOR = 5.0
+# The dense auction holds a few (B, N, N) tensors a step (the values, the
+# bids, the one-hot of the columns bid): earth_mover_distance_ref runs as
+# many elements at once as keep B·N² within DENSE_PAIRS (1 GiB of values).
+DENSE_PAIRS = 1 << 28
 
 
 def phase_eps(eps: float, scale_phases: int):
@@ -151,6 +158,40 @@ def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
     return dist, ass
 
 
+def earth_mover_distance_ref(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.005,
+                             iters: int = 50, scale_phases: int = 1,
+                             early_exit: bool = True, scale_thresh: float = 0.0):
+    """The dense auction in plain torch at any N, on the tensors' device
+    (fenet's ``earth_mover_distance_ref``, the XLA auction fenet runs where
+    its Pallas kernel declines): :func:`_auction_loop` over as many
+    elements at a time as keep their (N, N) values within DENSE_PAIRS.
+    (dist, assignment) as :func:`earth_mover_distance`. Counts its calls in
+    ``earth_mover_distance_ref.calls``."""
+    earth_mover_distance_ref.calls += 1
+    n = xyz1.shape[1]
+    step = max(1, DENSE_PAIRS // (n * n))
+    parts = [_auction_loop(xyz1[i:i + step], xyz2[i:i + step], eps, iters, scale_phases,
+                           early_exit, scale_thresh)[:2]
+             for i in range(0, xyz1.shape[0], step)]
+    return torch.cat([d for d, _ in parts]), torch.cat([a for _, a in parts])
+
+
+earth_mover_distance_ref.calls = 0
+_warned_dense: set = set()
+
+
+def _warn_dense_once(n: int) -> None:
+    """Say once per N that the op runs the dense auction: its numbers are
+    the same algorithm's, from another implementation than the kernel."""
+    if n in _warned_dense:
+        return
+    _warned_dense.add(n)
+    logging.getLogger("fenet_torch.ops.emd").warning(
+        "EMD kernel declined for N=%d (needs N <= %d); running the dense auction "
+        "(earth_mover_distance_ref, fenet's XLA reference auction: the same "
+        "algorithm, an (N, N) value matrix an element in plain torch).", n, MAX_N)
+
+
 def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
                    scale_phases: int = 1, early_exit: bool = True,
                    scale_thresh: float = 0.0):
@@ -228,7 +269,10 @@ class _EarthMoverDistance(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xyz1, xyz2, eps, iters, scale_phases, early_exit, scale_thresh):
         args = (xyz1, xyz2, eps, iters, scale_phases, early_exit, scale_thresh)
-        if xyz1.device.type == "cpu" and xyz2.device.type == "cpu":
+        if xyz1.shape[1] > MAX_N:
+            _warn_dense_once(xyz1.shape[1])
+            dist, ass = earth_mover_distance_ref(*args)
+        elif xyz1.device.type == "cpu" and xyz2.device.type == "cpu":
             dist, ass = _auction_plain(*args)
         else:
             dist, ass = auction_kernel(*args)

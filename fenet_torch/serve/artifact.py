@@ -7,7 +7,10 @@ the final (b, num_points, 3) cloud out, with a dynamic batch, and the folded
 weights at their serving dtype. Serving it needs torch alone, not this
 package's model code, and it cannot drift from the weights it was exported
 with. The archive holds CPU tensors; :func:`load_artifact` moves the program
-to its device, so the same file runs on the CPU and on a card.
+to its device, so the same file runs on the CPU and on a card, and one file
+serves over several cards: one program a card, each replaying the same
+one-device program on its shard of the batch (fenet replays its exported
+program per shard under ``shard_map``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from fenet_torch.serve.server import device_forward, dtype_name
+from fenet_torch.serve.server import device_forward, dtype_name, round_batch, serving_devices
 from fenet_torch.utils.device import resolve_device
 
 ARTIFACT_SUFFIX = ".pt2"
@@ -98,11 +101,13 @@ def load_artifact(path: str, device="cuda"):
     return forward, meta
 
 
-def build_forward_artifact(path: str, max_batch: int, device="cuda"):
+def build_forward_artifact(path: str, max_batch: int, device="cuda", devices=None):
     """(forward, meta) in ``serve.server.build_forward``'s contract, backed by
-    a frozen artifact: one device, the batch fixed at ``max_batch``."""
-    device = resolve_device(device)
-    call, meta = load_artifact(path, device)
-    meta = dict(meta, max_batch=int(max_batch), devices=1,
-                artifact=os.path.basename(path))
-    return device_forward(call, device), meta
+    a frozen artifact: the program moved to each device of
+    ``serve.server.serving_devices`` (every visible card for ``cuda``), the
+    batch split over them, ``max_batch`` rounded up to the device count."""
+    devices = serving_devices(device, devices)
+    programs = {d: load_artifact(path, d) for d in dict.fromkeys(devices)}
+    meta = dict(next(iter(programs.values()))[1], max_batch=round_batch(max_batch, len(devices)),
+                devices=len(devices), artifact=os.path.basename(path))
+    return device_forward([programs[d][0] for d in devices], devices), meta

@@ -29,9 +29,13 @@ import torch
 
 def fetch(out) -> np.ndarray:
     """The host's float32 copy of a forward's result: a tensor on any device
-    (this waits for the device) or anything ``np.asarray`` takes."""
+    (this waits for the device), a list of such shards (a forward over
+    several devices; concatenated in order), or anything ``np.asarray``
+    takes."""
     if isinstance(out, torch.Tensor):
         return out.float().cpu().numpy()
+    if isinstance(out, list):
+        return np.concatenate([fetch(part) for part in out])
     return np.asarray(out, np.float32)
 
 

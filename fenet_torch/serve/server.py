@@ -1,7 +1,9 @@
-"""Stdlib HTTP front end for a deploy checkpoint or artifact on one device
-(counterpart of ``fenet/serve/server.py``): a ThreadingHTTPServer whose
-handlers enqueue into one :class:`~fenet_torch.serve.batcher.MicroBatcher`,
-so concurrent requests share padded device batches.
+"""Stdlib HTTP front end for a deploy checkpoint or artifact (counterpart of
+``fenet/serve/server.py``): a ThreadingHTTPServer whose handlers enqueue
+into one :class:`~fenet_torch.serve.batcher.MicroBatcher`, so concurrent
+requests share padded device batches. Over several devices each holds a
+replica and the batch is split into equal contiguous shards, one a device,
+as fenet shards its batch over every local device.
 
 Endpoints:
 
@@ -20,7 +22,7 @@ from __future__ import annotations
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -28,52 +30,93 @@ import torch
 from fenet_torch.utils.device import full_fp32, resolve_device
 
 
-def device_forward(module: Callable[[torch.Tensor], torch.Tensor], device) -> Callable:
-    """``forward(images)`` for the MicroBatcher and the predict CLI: a
-    (b, H, W, 3) uint8 numpy batch goes to ``device`` as uint8 (the module
-    casts it there) and ``module``'s result returns still in flight.
+def device_forward(replicas: Sequence[Callable[[torch.Tensor], torch.Tensor]],
+                   devices: Sequence) -> Callable:
+    """``forward(images)`` for the MicroBatcher and the predict CLI over one
+    or several devices: the (b, H, W, 3) uint8 numpy batch is split into
+    ``len(devices)`` equal contiguous shards, shard i goes to ``devices[i]``
+    as uint8 (the replica casts it there) and runs ``replicas[i]``. The
+    results return still in flight: the lone tensor on one device, else the
+    shards in order (:func:`fenet_torch.serve.batcher.fetch` concatenates
+    them on the host).
 
-    On a card the batch is staged in pinned memory and copied with
-    ``non_blocking``, so the host does not wait for the copy, and through it
-    for the forward before it: that is what lets the batcher's depth-1
-    pipeline overlap an upload with the previous batch's compute. PyTorch's
-    caching host allocator hands a pinned block out again only once the copy
-    recorded on it has completed. ``inference_mode`` is thread-local, so the
-    forward enters it itself, in whichever thread calls it.
+    On a card the batch is staged in pinned memory and each shard copied
+    with ``non_blocking`` under its own card's context (the launches would
+    otherwise land on the current card), so the host waits on no device:
+    that is what lets the batcher's depth-1 pipeline overlap an upload with
+    the previous batch's compute. PyTorch's caching host allocator hands a
+    pinned block out again only once the copy recorded on it has completed.
+    ``inference_mode`` is thread-local, so the forward enters it itself, in
+    whichever thread calls it.
     """
-    device = torch.device(device)
+    devices = [torch.device(d) for d in devices]
     full_fp32()  # the float32 fold computes in IEEE float32, as the eval path
+    n = len(devices)
 
-    def forward(images: np.ndarray) -> torch.Tensor:
+    def forward(images: np.ndarray):
+        if len(images) % n:
+            raise ValueError(f"a batch of {len(images)} does not split over {n} devices")
         x = torch.from_numpy(np.ascontiguousarray(images, np.uint8))
-        if device.type == "cuda":
-            x = x.pin_memory().to(device, non_blocking=True)
+        if any(d.type == "cuda" for d in devices):
+            x = x.pin_memory()
+        outs = []
         with torch.inference_mode():
-            return module(x)
+            for replica, device, shard in zip(replicas, devices, x.split(len(x) // n)):
+                if device.type == "cuda":
+                    with torch.cuda.device(device):
+                        outs.append(replica(shard.to(device, non_blocking=True)))
+                else:
+                    outs.append(replica(shard))
+        return outs if n > 1 else outs[0]
 
     return forward
+
+
+def serving_devices(device="cuda", devices=None) -> List[torch.device]:
+    """The devices a forward serves over: ``devices`` when given (a device
+    may repeat: two replicas on one card), else every visible card for a
+    bare ``cuda``, else the one device ``device`` names (``cuda:1``,
+    ``cpu``). A card that is not there raises."""
+    if devices is not None:
+        return [resolve_device(d) for d in devices]
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        resolve_device(device)
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [resolve_device(device)]
+
+
+def round_batch(max_batch: int, n_devices: int) -> int:
+    """``max_batch`` rounded up to a multiple of the device count, as fenet
+    rounds its serving batch, so that every shard is equal."""
+    return -(-int(max_batch) // n_devices) * n_devices
 
 
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).rsplit(".", 1)[-1]
 
 
-def build_forward(deploy_ckpt: str, max_batch: int, device="cuda"):
-    """(forward, meta): the deploy forward on one device at the fixed
-    serving batch, from a folded checkpoint (``export_deploy --format
-    torch``) or, by its ``.pt2`` suffix, a frozen artifact (``--format
-    export``)."""
+def build_forward(deploy_ckpt: str, max_batch: int, device="cuda", devices=None):
+    """(forward, meta): the deploy forward at the fixed serving batch over
+    :func:`serving_devices` (every visible card for ``cuda``), from a folded
+    checkpoint (``export_deploy --format torch``) or, by its ``.pt2``
+    suffix, a frozen artifact (``--format export``). ``meta["max_batch"]``
+    is ``max_batch`` rounded up to the device count, ``meta["devices"]``
+    the count."""
     from fenet_torch.serve.artifact import ARTIFACT_SUFFIX, build_forward_artifact
 
     if deploy_ckpt.endswith(ARTIFACT_SUFFIX):
-        return build_forward_artifact(deploy_ckpt, max_batch, device)
+        return build_forward_artifact(deploy_ckpt, max_batch, device, devices)
     from fenet_torch.cli.export_deploy import load_deploy_checkpoint
 
-    device = resolve_device(device)
-    gen, dtype = load_deploy_checkpoint(deploy_ckpt, device)
+    devices = serving_devices(device, devices)
+    models = {d: load_deploy_checkpoint(deploy_ckpt, d) for d in dict.fromkeys(devices)}
+    gen, dtype = next(iter(models.values()))
     meta = {"num_points": gen.num_points, "backbone": gen.backbone,
-            "dtype": dtype_name(dtype), "max_batch": int(max_batch), "devices": 1}
-    return device_forward(lambda x: gen(x)[2], device), meta
+            "dtype": dtype_name(dtype), "max_batch": round_batch(max_batch, len(devices)),
+            "devices": len(devices)}
+    replicas = [lambda x, g=models[d][0]: g(x)[2] for d in devices]
+    return device_forward(replicas, devices), meta
 
 
 class _Server(ThreadingHTTPServer):
@@ -109,11 +152,13 @@ def make_server(deploy_ckpt: str, host: str = "127.0.0.1", port: int = 8471,
     ``server.batcher.close()``).
 
     ``forward``/``meta`` may be given (tests, instrumented runs); by default
-    they come from :func:`build_forward` on ``device``."""
+    they come from :func:`build_forward` on ``device``, and the batch is
+    ``meta["max_batch"]``, rounded up to the device count."""
     from fenet_torch.serve.batcher import MicroBatcher
 
     if forward is None:
         forward, meta = build_forward(deploy_ckpt, max_batch, device)
+        max_batch = meta["max_batch"]
     batcher = MicroBatcher(forward, max_batch=max_batch, window_ms=window_ms)
     stats = _Stats()
     srv_meta = dict(meta or {})

@@ -538,7 +538,7 @@ def test_device_forward_dispatches_without_a_host_sync_on_card(cuda):
     rows equal the module's on the same images."""
     gen = to_deploy(_randomize_bn_(
         init_random_(Generator(**SMALL), torch.Generator().manual_seed(0)), 1).to(cuda))
-    forward = device_forward(lambda x: gen(x)[2], cuda)
+    forward = device_forward([lambda x: gen(x)[2]], [cuda])
     batches = [_images(s, MAX_BATCH) for s in range(3)]
     forward(batches[0])  # warm-up: cuDNN plans, the pinned block
     torch.cuda.synchronize()
