@@ -13,9 +13,11 @@ its parallel training (two ranks on torch.distributed, dp with sync-BN,
 the Megatron decoder split, the ring chamfer; NCCL in a world of one), and
 the rest (fscore, the dense auction above 8192 points, a profiler trace,
 the golden-table recorder, Grad-CAM, SimpleGenerator and the render and
-heatmap CLIs) at full width with seeded random weights, at 1024 points and
-again at 2048 (phases 4-6 below, run at each; the Pix3D, serving, data,
-parallel, analysis, goldens and viz phases at 1024). Each phase prints one
+heatmap CLIs), and fenet's flax checkpoint container (train, resume, eval
+and deploy through it) at full width with seeded random weights, at 1024
+points and again at 2048 (phases 4-6 below, run at each; the Pix3D,
+serving, data, parallel, analysis, goldens, viz and checkpoint phases at
+1024). Each phase prints one
 JSON line; any failure raises, and the script exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
@@ -160,10 +162,22 @@ JSON line; any failure raises, and the script exits non-zero.
    each writing the files fenet's would, with no kernel launch; Grad-CAM on
    the card against the CPU (GRADCAM_ATOL) at the final map and stage3, and
    SimpleGenerator's forward against the CPU (1e-4 of max|ref|).
+14. checkpoint (after viz): fenet's flax container at full width.
+   train_net for 2 epochs of one step at batch TRAIN_BATCH with
+   ckpt_format "flax", validating at epoch 2 (K1 2 and K3 1 launches a
+   step and a batch); its final state saved through both containers (the
+   flax bytes equal train_net's own file) and loaded back, weights, BN
+   statistics, both Adam moments and the step bit for bit; save and load
+   seconds and GB/s, and a load's peak resident set in a CPU process of its
+   own. A third epoch resumed from each container: identical CD and EMD.
+   eval_shapenet on a tree holding only model_best.ckpt and on one holding
+   only model_best.pth.tar: identical metrics. export_deploy --format flax
+   and --format torch in float32 and bf16, predict from each: the flax
+   files' clouds equal the torch files' bit for bit, no kernel launched.
 
 The line before the last is one JSON object with every kernel's numbers
 (K1, K3 and K4 also with their launches in the finetune, finetune_net,
-pix3d, data, parallel, analysis, goldens and viz phases; every kernel with
+pix3d, data, parallel, analysis, goldens, viz and checkpoint phases; every kernel with
 its launches on the serving paths, 0); the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -174,6 +188,7 @@ import copy
 import functools
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -327,6 +342,8 @@ GRADCAM_ATOL = 1e-4
 # the unscaled init, as the reference does: Adam's first steps move every
 # weight by about the LR (5e-4), 25% of a scaled head weight.
 HEAD_SCALE = 0.03
+# phase checkpoint: how often a load's resident set is sampled.
+RSS_SAMPLE_S = 0.002
 
 
 def emit(obj) -> None:
@@ -2543,6 +2560,258 @@ def phase_viz(device, goldens: dict) -> dict:
     return {name: counts for name, counts in launches.items()}
 
 
+def rss_of_load(path: str) -> dict:
+    """Load ``path`` with ``load_checkpoint`` in a fresh CPU process: its
+    resident set (``VmRSS``) after the imports and the most of it that a
+    thread sampling every RSS_SAMPLE_S saw during the load, the load's
+    seconds, and the bytes of the state_dict it returned. (The card
+    machine's ``/proc/self/status`` has no ``VmHWM``, and ``ru_maxrss``
+    carries the parent's peak across the exec.)"""
+    code = (
+        "import json, sys, threading, time\n"
+        "import torch\n"
+        "from fenet_torch.train.checkpoint import load_checkpoint\n"
+        "def rss():\n"
+        "    with open('/proc/self/status') as f:\n"
+        "        line = next(ln for ln in f if ln.startswith('VmRSS:'))\n"
+        "    return int(line.split()[1]) * 1024\n"
+        "base = peak = rss()\n"
+        "done = threading.Event()\n"
+        "def sample():\n"
+        "    global peak\n"
+        "    while not done.is_set():\n"
+        "        peak = max(peak, rss())\n"
+        f"        time.sleep({RSS_SAMPLE_S})\n"
+        "sampler = threading.Thread(target=sample)\n"
+        "sampler.start()\n"
+        "t0 = time.perf_counter()\n"
+        "blob = load_checkpoint(sys.argv[1])\n"
+        "seconds = time.perf_counter() - t0\n"
+        "done.set()\n"
+        "sampler.join()\n"
+        "peak = max(peak, rss())\n"
+        "nbytes = sum(v.numel() * v.element_size() for v in blob['state_dict'].values())\n"
+        "print(json.dumps({'baseline_rss_bytes': base, 'load_s': seconds,\n"
+        "                  'peak_rss_bytes': peak, 'state_dict_bytes': nbytes}))\n")
+    out = subprocess.run([sys.executable, "-c", code, path], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT),
+                                                      "CUDA_VISIBLE_DEVICES": ""})
+    if out.returncode != 0:
+        raise RuntimeError(f"loading {path} in a child failed:\n{out.stderr}")
+    info = json.loads(out.stdout.strip().splitlines()[-1])
+    info["peak_over_baseline_bytes"] = info["peak_rss_bytes"] - info["baseline_rss_bytes"]
+    return info
+
+
+def phase_checkpoint(device) -> dict:
+    """fenet's flax container at full width (N_POINTS). train_net for 2
+    epochs of one step at batch TRAIN_BATCH in ckpt_format "flax",
+    validating at epoch 2; its final state saved again through both
+    containers (the flax bytes must equal train_net's own file), each timed,
+    and loaded back (timed here and, for the peak resident set, in a CPU
+    process of its own): weights, BN statistics, both Adam moments and the
+    step bit for bit. A third epoch resumed from each container: the first
+    resumed step's CD and EMD identical. eval_shapenet on a tree holding
+    only model_best.ckpt and on one holding only model_best.pth.tar:
+    identical metrics. export_deploy --format flax and --format torch in
+    float32 and bf16, then predict from each: the flax files' clouds equal
+    the torch files' bit for bit. Returns each run's launch counts."""
+    import dataclasses
+    import filecmp
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fenet_torch.cli import eval_shapenet, export_deploy, predict
+    from fenet_torch.data.synthetic import SyntheticShapeNet, write_synthetic_shapenet
+    from fenet_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from fenet_torch.train.config import TrainConfig
+    from fenet_torch.train.driver import train_net
+    from fenet_torch.utils.ply import load_pointcloud
+
+    n, cat = N_POINTS, "02828884"
+    arch = ["--num_points", str(n), "--backbone", MODEL["backbone"],
+            "--fine_width", str(MODEL["fine_width"]), "--mid_width", str(MODEL["mid_width"])]
+    train_ds = SyntheticShapeNet(n_models=-(-TRAIN_BATCH // 24), num_points=n, variety=True,
+                                 seed=0)
+    val_ds = SyntheticShapeNet(n_models=1, num_points=n, seed=1)
+    steps_per_epoch = len(train_ds) // TRAIN_BATCH
+    per_step = {"chamfer_nn": 2, "emd_auction": 1, "emd_auction_stream": 0, "sinkhorn": 0}
+
+    def expect(label, steps):
+        launches = launch_counts()
+        want = {k: v * steps for k, v in per_step.items()}
+        if launches != want:
+            raise AssertionError(f"checkpoint ({label}) launched {launches}, not {want}")
+        return launches
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    counts, info = {}, {"model": model_name(n), "batch": TRAIN_BATCH}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        gen = make_model(device, head_scale=1.0, n=n)
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, num_points=n, nepoch=2, validate_epochs=(2,),
+                          train_save_freq=0, dir_path=str(tmp / "run"), manual_seed=0,
+                          ckpt_format="flax")
+        reset_counts()
+        out = train_net(cat, cfg, train_ds, val_ds, model=gen, device=device)
+        torch.cuda.synchronize()
+        counts["train_net"] = expect("train_net", 2 * steps_per_epoch
+                                     + -(-len(val_ds) // TRAIN_BATCH))
+        run_dir = Path(out["ckpt_dir"])
+        written = run_dir / f"{cat}_checkpoint_2.ckpt"
+        best = run_dir / "model_best.ckpt"
+        if (not filecmp.cmp(best, written, shallow=False)
+                or json.loads((run_dir / "model_best.ckpt.json").read_text())["epoch"] != 2
+                or list(run_dir.glob("*.pth.tar"))):
+            raise AssertionError(f"train_net wrote {sorted(p.name for p in run_dir.iterdir())}")
+        best.unlink()  # the disk holds three 2 GB checkpoints at most
+
+        # The same state through both containers, each timed.
+        state_dict, optimizer = out["trainer"].full_state()
+        del out
+        meta = json.loads((run_dir / f"{cat}_checkpoint_2.ckpt.json").read_text())
+        state = {"state_dict": state_dict, "optimizer": optimizer, **meta}
+        paths, container = {}, {}
+        for fmt in ("flax", "torch"):
+            ckpt_dir = tmp / fmt / cat / "checkpoints"
+            t0 = time.perf_counter()
+            paths[fmt] = save_checkpoint(state, False, cat, str(ckpt_dir), 2, fmt=fmt)
+            save_s = time.perf_counter() - t0
+            size = Path(paths[fmt]).stat().st_size
+            container[fmt] = {"file_bytes": size, "save_s": save_s,
+                              "save_gb_per_s": size / save_s / 1e9}
+        if not filecmp.cmp(paths["flax"], written, shallow=False):
+            raise AssertionError("the flax save of train_net's final state differs from "
+                                 "train_net's own checkpoint")
+        shutil.rmtree(tmp / "run")
+        del state, state_dict, optimizer
+        blobs = {}
+        for fmt in ("flax", "torch"):
+            t0 = time.perf_counter()
+            blobs[fmt] = load_checkpoint(paths[fmt])
+            load_s = time.perf_counter() - t0
+            container[fmt].update(load_s=load_s,
+                                  load_gb_per_s=container[fmt]["file_bytes"] / load_s / 1e9,
+                                  child_load=rss_of_load(paths[fmt]))
+        a, b = blobs["torch"], blobs["flax"]
+        extra = set(a["state_dict"]) - set(b["state_dict"])
+        if extra != {k for k in a["state_dict"] if k.endswith("num_batches_tracked")}:
+            raise AssertionError(f"the containers hold different tensors: {sorted(extra)[:5]}")
+        for key, value in b["state_dict"].items():
+            if not torch.equal(value, a["state_dict"][key]):
+                raise AssertionError(f"{key} differs between the containers")
+        if a["optimizer"]["state"].keys() != b["optimizer"]["state"].keys():
+            raise AssertionError("the containers hold Adam state for different parameters")
+        for i, entry in a["optimizer"]["state"].items():
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                got = b["optimizer"]["state"][i][key]
+                if not (got.dtype == entry[key].dtype and torch.equal(got, entry[key])):
+                    raise AssertionError(f"Adam's {key} of parameter {i} differs")
+        scalars = {k: v for k, v in a.items() if k not in ("state_dict", "optimizer")}
+        if json.dumps(scalars) != json.dumps({k: b[k] for k in scalars}):
+            raise AssertionError(f"the scalars differ: {scalars} vs {b}")
+        tensors = len(b["state_dict"]) + 3 * len(b["optimizer"]["state"])
+        del a, b, blobs
+
+        # A third epoch resumed from each container.
+        resumed = {}
+        for fmt in ("flax", "torch"):
+            gen = make_model(device, head_scale=1.0, n=n)
+            rcfg = dataclasses.replace(cfg, dir_path=str(tmp / fmt), resume=True, nepoch=3,
+                                       validate_epochs=(), ckpt_format=fmt)
+            reset_counts()
+            t0 = time.perf_counter()
+            hist = train_net(cat, rcfg, train_ds, val_ds, model=gen, device=device)["history"]
+            torch.cuda.synchronize()
+            counts[f"resume_{fmt}"] = expect(f"resume from {fmt}", steps_per_epoch)
+            if [h["epoch"] for h in hist] != [3]:
+                raise AssertionError(f"the resume from {fmt} ran epochs {hist}")
+            resumed[fmt] = {"wall_s": time.perf_counter() - t0,
+                            "chamfer_loss": hist[0]["chamfer_loss"],
+                            "emd_loss": hist[0]["emd_loss"]}
+            for path in (tmp / fmt / cat / "checkpoints").glob(f"{cat}_checkpoint_3*"):
+                path.unlink()
+        if any(resumed["flax"][k] != resumed["torch"][k] for k in ("chamfer_loss", "emd_loss")):
+            raise AssertionError(f"the resumed steps differ: {resumed}")
+        del gen
+
+        # eval_shapenet on a tree holding only model_best.ckpt, and on one
+        # holding only model_best.pth.tar.
+        tree = tmp / "tree"
+        write_synthetic_shapenet(str(tree), cats=(cat,), models_per_cat=1, num_points=n)
+        metrics, eval_s = {}, {}
+        for fmt, suffix in (("flax", ".ckpt"), ("torch", ".pth.tar")):
+            # The epoch-2 checkpoint becomes the tree's only file (and sidecar),
+            # model_best; the resume's log goes.
+            src = tmp / fmt / cat / "checkpoints" / f"{cat}_checkpoint_2{suffix}"
+            (src.parent / "logging.log").unlink()
+            best = src.parent / f"model_best{suffix}"
+            src.rename(best)
+            if fmt == "flax":
+                (src.parent / (src.name + ".json")).rename(best.parent / (best.name + ".json"))
+            reset_counts()
+            t0 = time.perf_counter()
+            res = eval_shapenet.main([
+                "--device", str(device), *arch, "--cats", cat,
+                "--model", str(tmp / fmt / "%s" / "checkpoints"),
+                "--splits_path", str(tree / "splits"),
+                "--data_dir_imgs", str(tree / "ShapeNetRendering"),
+                "--data_dir_pcl", str(tree / "ShapeNet_pointclouds")])[cat]
+            torch.cuda.synchronize()
+            eval_s[fmt] = time.perf_counter() - t0
+            counts[f"eval_{fmt}"] = expect(f"eval_shapenet on model_best{suffix}",
+                                           -(-res["samples"] // 64))
+            metrics[fmt] = {k: res[k] for k in ("ChamferDistance", "EMD_distance", "samples")}
+            if sorted(p.name for p in best.parent.iterdir() if p.suffix != ".log") != sorted(
+                    [best.name] + ([best.name + ".json"] if fmt == "flax" else [])):
+                raise AssertionError(f"the {fmt} tree holds {list(best.parent.iterdir())}")
+        if metrics["flax"] != metrics["torch"] or not all(
+                np.isfinite(metrics["flax"][k]) for k in ("ChamferDistance", "EMD_distance")):
+            raise AssertionError(f"eval_shapenet differs between the containers: {metrics}")
+
+        # export_deploy in both containers and dtypes, then predict.
+        img_dir = tmp / "images"
+        img_dir.mkdir()
+        for i, png in enumerate(sorted((tree / "ShapeNetRendering").rglob("*.png"))[:8]):
+            shutil.copyfile(png, img_dir / f"view{i}.png")
+        deploy, clouds = {}, {}
+        for fmt in ("flax", "torch"):
+            for dtype in ("float32", "bfloat16"):
+                suffix = ".ckpt" if fmt == "flax" else ".pth"
+                reset_counts()
+                t0 = time.perf_counter()
+                path = export_deploy.main([
+                    "--model", str(tmp / fmt / "%s" / "checkpoints"), "--category", cat,
+                    *arch, "--device", str(device), "--dtype", dtype,
+                    "--format", fmt, "--out", str(tmp / f"deploy_{dtype}{suffix}")])
+                export_s = time.perf_counter() - t0
+                plys = predict.main([
+                    "--deploy_ckpt", path, "--images", str(img_dir),
+                    "--out_dir", str(tmp / f"predict_{fmt}_{dtype}"), "--batchSize", "8",
+                    "--ply_binary", "--device", str(device)])
+                assert_no_launches(f"export_deploy/predict ({fmt}, {dtype})")
+                clouds[fmt, dtype] = np.stack([load_pointcloud(p) for p in sorted(plys)])
+                deploy[f"{fmt}_{dtype}"] = {"file_bytes": Path(path).stat().st_size,
+                                            "export_s": export_s}
+        for dtype in ("float32", "bfloat16"):
+            got, want = clouds["flax", dtype], clouds["torch", dtype]
+            if got.shape != (8, n, 3) or not np.isfinite(got).all() or not np.array_equal(
+                    got, want):
+                raise AssertionError(f"predict from model_deploy.ckpt ({dtype}) differs from "
+                                     f"the torch deploy checkpoint's: shapes {got.shape}, "
+                                     f"{want.shape}")
+    info.update(container=container, tensors=tensors, bit_equal_loads=True,
+                resumed_epoch_3=resumed, resumed_identical=True, eval=metrics,
+                eval_s=eval_s, eval_identical=True, deploy=deploy,
+                predict_bit_equal=True, launches=counts)
+    emit({"phase": "checkpoint", "nvidia_smi": nvidia_smi(), **info})
+    return counts
+
+
 def phase_timing(launches, pred, gt, train):
     """The kernels line. K1 and K3 on the eval path's inputs (the first eval
     batch: aligned predictions vs gt) at the eval settings; K5 and K6/K7 on
@@ -2780,11 +3049,12 @@ def main() -> int:
     parallel = phase_parallel(device, data)
     goldens = phase_goldens(device)
     viz = phase_viz(device, goldens)
+    ckpt = phase_checkpoint(device)
     launches, pred, gt = phase_eval(device, WIDE_POINTS)
     train_wide = phase_train(device, WIDE_POINTS)
     rows += phase_timing_wide(launches, pred, gt, train_wide)
     # The launches of the finetune, finetune_net, pix3d, data, parallel,
-    # analysis, goldens and viz phases (the ranks' counts; fscore's a call,
+    # analysis, goldens, viz and checkpoint phases (the ranks' counts; fscore's a call,
     # goldens' a run of 12 batches), beside each kernel's main-path count.
     new_paths = {"finetune": train["finetune"], "finetune_wide": train_wide["finetune"],
                  "finetune_net": train["finetune_net"], "pix3d": pix3d,
@@ -2793,7 +3063,8 @@ def main() -> int:
                  "data_train_net_per_item": data["per_item"], **parallel,
                  "fscore": analysis["fscore"], "dense_auction": analysis["dense_auction"],
                  "goldens": goldens["launches"],
-                 **{f"viz_{name}": counts for name, counts in viz.items()}}
+                 **{f"viz_{name}": counts for name, counts in viz.items()},
+                 **{f"checkpoint_{name}": counts for name, counts in ckpt.items()}}
     for row in rows:
         if row["name"] in ("chamfer_nn", "emd_auction", "emd_auction_stream"):
             row["launches_new_paths"] = {path: counts[row["name"]]

@@ -7,7 +7,7 @@ import argparse
 import os
 from typing import Dict, Iterable
 
-from fenet_torch.train.checkpoint import BEST
+from fenet_torch.train.checkpoint import BEST, best_checkpoint
 from fenet_torch.train.config import TrainConfig
 
 
@@ -77,8 +77,9 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--ckpt_format", type=str, default="torch",
                         choices=("torch", "flax", "orbax"),
                         help="checkpoint container: 'torch', the reference's "
-                             ".pth.tar (default); fenet's 'flax' and 'orbax' "
-                             "containers are not ported and raise")
+                             ".pth.tar (default), or 'flax', fenet's .ckpt "
+                             "with its JSON sidecar; fenet's 'orbax' "
+                             "container is not ported and raises")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch "
                              "versions of the kernels")
@@ -128,11 +129,12 @@ DEFAULT_TRAIN_CATS = ["02828884"]
 
 def require_checkpoints(parser: argparse.ArgumentParser, pattern: str,
                         ids: Iterable[str]) -> Dict[str, str]:
-    """``{id: {pattern % id}/model_best.pth.tar}``; a missing file is a usage
-    error, raised before any data is read or any directory is made."""
-    paths = {i: os.path.join(pattern % i, BEST) for i in ids}
-    missing = [p for p in paths.values() if not os.path.isfile(p)]
+    """``{id: {pattern % id}/model_best.pth.tar}``, or fenet's
+    ``model_best.ckpt`` where there is no ``.pth.tar``; a missing file is a
+    usage error, raised before any data is read or any directory is made."""
+    paths = {i: best_checkpoint(pattern % i) for i in ids}
+    missing = [os.path.join(pattern % i, BEST) for i, p in paths.items() if p is None]
     if missing:
-        parser.error(f"no checkpoint at {', '.join(missing)}; train the "
-                     "category first or point --model at its checkpoint dir")
+        parser.error(f"no checkpoint at {', '.join(missing)} (nor model_best.ckpt); train "
+                     "the category first or point --model at its checkpoint dir")
     return paths

@@ -2,7 +2,8 @@
 ``fenet/cli/eval_shapenet.py``): same flags, plus ``--device``.
 
 Weights come from ``{--model % cat}/model_best.pth.tar``, the reference's
-checkpoint format (``{"state_dict": ...}``).
+checkpoint format (``{"state_dict": ...}``), or where there is none from
+fenet's ``model_best.ckpt``.
 
     python -m fenet_torch.cli.eval_shapenet --model out/%s/checkpoints/ \\
         --splits_path data/splits --data_dir_imgs ... --data_dir_pcl ...

@@ -6,7 +6,8 @@ same flags, plus ``--device``.
         --model out/%s/checkpoints/ --splits_path data/splits \\
         --data_dir_imgs ... --data_dir_pcl ... --layer stage3
 
-Weights come from ``{--model % category}/model_best.pth.tar``. Writes
+Weights come from ``{--model % category}/model_best.pth.tar`` (or fenet's
+``model_best.ckpt``). Writes
 ``{category}_{i:03d}_cam[_{layer}].png``, the CAM blended onto the input,
 for the first ``--n_samples`` val samples.
 """

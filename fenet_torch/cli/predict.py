@@ -45,8 +45,9 @@ def main(argv=None):
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--deploy_ckpt", type=str, required=True,
                         help="folded checkpoint from fenet_torch.cli.export_deploy "
-                             "(its sidecar gives the architecture and dtype), or "
-                             "a *.pt2 artifact (--format export)")
+                             "(its sidecar gives the architecture and dtype), "
+                             "fenet's model_deploy.ckpt, or a *.pt2 artifact "
+                             "(--format export)")
     parser.add_argument("--images", type=str, required=True,
                         help="image file, directory, or glob pattern")
     parser.add_argument("--out_dir", type=str, default="./predictions/")

@@ -19,7 +19,8 @@ with ``--icp_patience 0``, no relative plateau exit), the reference eval EMD
         --data_dir_pcl .../ShapeNet_pointclouds/ \\
         --splits_path .../splits/ --out goldens_shapenet.json
 
-    # the port's checkpoints ({--model % cat}/model_best.pth.tar):
+    # the port's or fenet's checkpoints ({--model % cat}/model_best.pth.tar,
+    # else model_best.ckpt):
     python -m fenet_torch.cli.record_goldens \\
         --model ./output/fenet/%s/checkpoints/ --out goldens_shapenet.json
 
@@ -51,19 +52,20 @@ from fenet_torch.parallel.distributed import (
     shard_for_process,
     world_size,
 )
-from fenet_torch.train.checkpoint import BEST
+from fenet_torch.train.checkpoint import BEST, best_checkpoint
 from fenet_torch.utils.device import resolve_device
 
 
 def checkpoint_path(opt, cat: str) -> str:
     """``--torch_model`` (``%s`` = category, or one file for every
-    category) if given, else ``{--model % cat}/model_best.pth.tar``; a
-    missing file raises FileNotFoundError."""
+    category) if given, else ``{--model % cat}/model_best.pth.tar`` or,
+    where there is none, fenet's ``model_best.ckpt``; a missing file raises
+    FileNotFoundError."""
     if opt.torch_model:
         path = opt.torch_model % cat if "%s" in opt.torch_model else opt.torch_model
     else:
         ckpt_dir = opt.model % cat if "%s" in opt.model else opt.model
-        path = os.path.join(ckpt_dir, BEST)
+        path = best_checkpoint(ckpt_dir) or os.path.join(ckpt_dir, BEST)
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     return path
@@ -91,7 +93,7 @@ def main(argv=None):
     parser.add_argument("--num_points", type=int, default=1024)
     parser.add_argument("--model", type=str, default="./output/fenet/%s/checkpoints/",
                         help="the port's checkpoint dir pattern (%%s = category), "
-                             "holding model_best.pth.tar")
+                             "holding model_best.pth.tar or fenet's model_best.ckpt")
     parser.add_argument("--torch_model", type=str, default=None,
                         help="reference .pth.tar pattern (%%s = category, else one "
                              "file for every category); takes precedence over "

@@ -6,7 +6,8 @@ reference's shapenet_img.py): the same flags, plus ``--device``.
         --model out/%s/checkpoints/ --splits_path data/splits \\
         --data_dir_imgs ... --data_dir_pcl ... --out_dir renders/
 
-Weights come from ``{--model % category}/model_best.pth.tar``; ``--deploy``
+Weights come from ``{--model % category}/model_best.pth.tar`` (or fenet's
+``model_best.ckpt``); ``--deploy``
 folds them first (``models.generator.to_deploy``). Writes
 ``{category}_{i:03d}.png`` for the first ``--n_samples`` val samples.
 """
@@ -29,8 +30,8 @@ from fenet_torch.viz.render import render_clouds
 
 def load_generator(parser, opt, ckpt_id: str, device) -> Generator:
     """The branched Generator of ``opt``'s architecture on ``device``, in
-    eval mode, with ``{opt.model % ckpt_id}/model_best.pth.tar``'s weights
-    (a missing file is a usage error)."""
+    eval mode, with the weights of ``{opt.model % ckpt_id}/model_best.pth.tar``
+    or fenet's ``model_best.ckpt`` (a missing file is a usage error)."""
     path = require_checkpoints(parser, opt.model, [ckpt_id])[ckpt_id]
     with torch.device(device):
         gen = Generator(num_points=opt.num_points, backbone=opt.backbone,

@@ -6,7 +6,8 @@ same flags, plus ``--device``.
         --model out/%s/checkpoints/ --out_dir pix3d_renders/
 
 Each Pix3D category is predicted with its ShapeNet category's weights,
-``{--model % id}/model_best.pth.tar`` (``eval_pix3d.PIX3D_TO_SHAPENET``),
+``{--model % id}/model_best.pth.tar`` or ``model_best.ckpt``
+(``eval_pix3d.PIX3D_TO_SHAPENET``),
 and writes ``{out_dir}/{category}/{name}_gt.png`` and ``{name}_pr.png`` in
 the reference's fixed frame (red points, ±0.45 axes, azim -45, elev
 -165). A sample whose two files both exist is skipped, so a run cut

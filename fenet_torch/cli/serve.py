@@ -24,8 +24,8 @@ def main(argv=None):
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--deploy_ckpt", type=str, required=True,
                         help="folded checkpoint from fenet_torch.cli.export_deploy, "
-                             "or a *.pt2 artifact (--format export), recognised by "
-                             "its suffix")
+                             "fenet's model_deploy.ckpt, or a *.pt2 artifact "
+                             "(--format export), recognised by its suffix")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8471)
     parser.add_argument("--max_batch", type=int, default=32,

@@ -215,6 +215,13 @@ class SimpleGenerator(nn.Module):
         return torch.tanh(self.fc3(h)).reshape(images.shape[0], self.num_points, 3)
 
 
+def transpose_clouds(*clouds: torch.Tensor):
+    """(B, N, 3) -> (B, 3, N), the reference's output convention; one
+    cloud in, one out."""
+    out = tuple(c.transpose(1, 2) for c in clouds)
+    return out if len(out) > 1 else out[0]
+
+
 def fold_generator_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A branched Generator's state_dict -> the state_dict of
     ``Generator(deploy=True)``: the RepVGG blocks through

@@ -180,6 +180,12 @@ REPVGG_CONFIGS: Dict[str, RepVGGConfig] = {
 }
 
 
+def create_repvgg(name: str, deploy: bool = False) -> "RepVGG":
+    """The backbone registered as ``name`` (the reference's
+    get_RepVGG_func_by_name)."""
+    return RepVGG(REPVGG_CONFIGS[name], deploy)
+
+
 def _stage_plan(config: RepVGGConfig) -> List[Tuple[str, int, int, int]]:
     """(name, out_channels, stride, groups) for every block, in order."""
     wm = config.width_multiplier

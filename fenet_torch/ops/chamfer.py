@@ -30,6 +30,15 @@ def _nn_ref(a: torch.Tensor, b: torch.Tensor):
     return dist, idx.to(torch.int32)
 
 
+def chamfer_distance_ref(xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """The plain chamfer, :func:`_nn_ref` in both directions on any device:
+    the outputs of :func:`chamfer_distance`, (dist1, dist2, idx1, idx2),
+    without its gradient rule."""
+    dist1, idx1 = _nn_ref(xyz1, xyz2)
+    dist2, idx2 = _nn_ref(xyz2, xyz1)
+    return dist1, dist2, idx1, idx2
+
+
 # The kernel's shape (csrc/chamfer_nn.cu: kRowsPerBlock, kTile; the library
 # exports both) and the card's SMs (an H100 has 132).
 ROWS_PER_BLOCK = 512

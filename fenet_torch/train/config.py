@@ -1,7 +1,8 @@
 """Structured training config with the reference's CLI defaults
 (counterpart of ``fenet/train/config.py``): the same fields and defaults,
 except ``ckpt_format``, whose default is the reference's ``.pth.tar``
-container ("torch"); fenet's "flax" and "orbax" containers raise here.
+container ("torch"); fenet's "flax" container is written on request and
+its "orbax" one raises here (``train.checkpoint.check_format``).
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ class TrainConfig:
 
     # validation epochs
     validate_epochs: Sequence[int] = (10, 30, 50)
-    # checkpoint container: 'torch' = the reference's .pth.tar
+    # checkpoint container: 'torch' = the reference's .pth.tar, 'flax' =
+    # fenet's .ckpt with its JSON sidecar
     ckpt_format: str = "torch"
     # eval-time ICP and EMD settings
     eval_icp_iterations: int = 1024

@@ -39,9 +39,9 @@ from fenet_torch.parallel.distributed import (
 )
 from fenet_torch.parallel.mesh import broadcast_object, broadcast_tree, make_mesh
 from fenet_torch.train.checkpoint import (
-    BEST,
-    SUFFIX,
+    SUFFIXES,
     check_format,
+    checkpoint_epoch,
     latest_checkpoint,
     load_checkpoint,
     save_checkpoint,
@@ -103,23 +103,33 @@ def load_pretrained_backbone(model: Generator, path: str) -> None:
     model.RepVGG.load_state_dict(own, strict=True)
 
 
-def _newest_checkpoint(ckpt_dir: str, cat: str, logger):
-    """The highest-epoch checkpoint: a periodic save after the last
-    validation must win over an older model_best."""
-    best_path = os.path.join(ckpt_dir, BEST)
-    blob = load_checkpoint(best_path) if os.path.exists(best_path) else None
-    periodic = latest_checkpoint(ckpt_dir, cat, SUFFIX)
-    if periodic is not None:
-        epoch = int(periodic[: -len(SUFFIX)].rsplit("_", 1)[1])
-        if blob is None or epoch > int(blob.get("epoch", 0)):
-            logger.info("resume: periodic checkpoint %s (epoch %d) is newest", periodic, epoch)
-            blob = load_checkpoint(periodic)
-    if blob is None:
+def _newest_checkpoint(ckpt_dir: str, cat: str, fmt: str, logger):
+    """The highest-epoch checkpoint in either container, as fenet's resume
+    picks it: a periodic save after the last validation must win over an
+    older model_best. At equal epochs ``fmt``'s container wins, and a
+    model_best over a periodic save."""
+    suffixes = (SUFFIXES[fmt],) + tuple(s for s in SUFFIXES.values() if s != SUFFIXES[fmt])
+    newest = None  # (epoch, path)
+    for suffix in suffixes:
+        path = os.path.join(ckpt_dir, "model_best" + suffix)
+        if os.path.exists(path):
+            epoch = checkpoint_epoch(path)
+            if newest is None or epoch > newest[0]:
+                newest = (epoch, path)
+    for suffix in suffixes:
+        periodic = latest_checkpoint(ckpt_dir, cat, suffix)
+        if periodic is not None:
+            epoch = int(periodic[: -len(suffix)].rsplit("_", 1)[1])
+            if newest is None or epoch > newest[0]:
+                logger.info("resume: periodic checkpoint %s (epoch %d) is newest", periodic,
+                            epoch)
+                newest = (epoch, periodic)
+    if newest is None:
         raise FileNotFoundError(f"--resume: no checkpoint under {ckpt_dir}")
-    return blob
+    return load_checkpoint(newest[1])
 
 
-def _broadcast_checkpoint(ckpt_dir: str, cat: str, logger) -> Dict:
+def _broadcast_checkpoint(ckpt_dir: str, cat: str, fmt: str, logger) -> Dict:
     """The newest checkpoint, loaded on rank 0 (the only rank that writes
     them, so the directory may be rank 0's alone) and broadcast. Rank 0
     reports a failure to load before the tensors' broadcast, so that every
@@ -127,7 +137,7 @@ def _broadcast_checkpoint(ckpt_dir: str, cat: str, logger) -> Dict:
     blob, error = None, None
     if is_primary():
         try:
-            blob = _newest_checkpoint(ckpt_dir, cat, logger)
+            blob = _newest_checkpoint(ckpt_dir, cat, fmt, logger)
         except Exception as e:  # any failure to load: re-raised on every rank below
             error = f"{type(e).__name__}: {e}"
             logger.error("resume: %s", error)
@@ -218,8 +228,8 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
     all_epoch_time = 0.0
     start_epoch = cfg.start_epoch
     if cfg.resume:
-        blob = (_broadcast_checkpoint(ckpt_dir, cat, logger) if multi
-                else _newest_checkpoint(ckpt_dir, cat, logger))
+        blob = (_broadcast_checkpoint(ckpt_dir, cat, cfg.ckpt_format, logger) if multi
+                else _newest_checkpoint(ckpt_dir, cat, cfg.ckpt_format, logger))
         trainer.load_full_state(blob["state_dict"], blob["optimizer"])
         start_epoch = int(blob.get("epoch", 0))
         all_epoch_time = float(blob.get("train_time", 0.0))
@@ -232,16 +242,17 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
         state_dict, optimizer = trainer.full_state()  # a collective under TP
         if not primary:
             return
+        # The scalars in fenet's order: a flax checkpoint's sidecar is fenet's.
         save_checkpoint({
             "state_dict": state_dict,
             "optimizer": optimizer,
             "epoch": epoch,
-            "train_time": all_epoch_time,
-            "best_chamfer_loss": (best_chamfer.state_dict()["ChamferDistance"]
-                                  if best_chamfer is not None else float("nan")),
-            "best_emd_loss": (best_emd.state_dict()["EMD_distance"]
-                              if best_emd is not None else float("nan")),
             "model_name": ckpt_dir,
+            "train_time": all_epoch_time,
+            "best_chamfer_loss": (float(best_chamfer.state_dict()["ChamferDistance"])
+                                  if best_chamfer is not None else float("nan")),
+            "best_emd_loss": (float(best_emd.state_dict()["EMD_distance"])
+                              if best_emd is not None else float("nan")),
         }, is_best, cat, ckpt_dir, epoch, fmt=cfg.ckpt_format)
 
     history = []

@@ -190,6 +190,12 @@ class Trainer:
         mesh = self.mesh
         self.model.load_state_dict(tp.shard_state_dict(state_dict, mesh.tp, mesh.tp_index)
                                    if mesh.tp > 1 else state_dict, strict=True)
+        # A hyperparameter the checkpoint's groups lack keeps this optimizer's
+        # value (fenet's flax container stores none: its groups hold only
+        # their params).
+        own = self.optimizer.state_dict()["param_groups"]
+        optimizer = {**optimizer, "param_groups": [
+            {**group, **saved} for group, saved in zip(own, optimizer["param_groups"])]}
         self.optimizer.load_state_dict(tp.shard_optimizer_state(optimizer, self.model, mesh))
 
     def fit_epoch(self, dataloader, epoch: int, logger=None, metric_writer=None,

@@ -1,5 +1,5 @@
-"""Multi-item running average meter (counterpart of
-``fenet/utils/average_meter.py``)."""
+"""Multi-item running average meter, the batch-progress printer and top-k
+accuracy (counterpart of ``fenet/utils/average_meter.py``)."""
 
 from __future__ import annotations
 
@@ -53,3 +53,32 @@ class AverageMeter:
         if idx is None:
             return [one(i) for i in range(self.n_items)]
         return one(idx)
+
+
+class ProgressMeter:
+    """Formatted batch-progress printer (the reference's utils/utils.py)."""
+
+    def __init__(self, num_batches: int, meters, prefix: str = ""):
+        fmt = "{:" + str(len(str(num_batches))) + "d}"
+        self.batch_fmtstr = "[" + fmt + "/" + fmt.format(num_batches) + "]"
+        self.meters = meters
+        self.prefix = prefix
+
+    def display(self, batch: int):
+        entries = [self.prefix + self.batch_fmtstr.format(batch)]
+        entries += [str(meter) for meter in self.meters]
+        print("\t".join(entries))
+
+
+def accuracy(output, target, topk=(1,)) -> List[float]:
+    """Top-k classification accuracy in percent (the reference's
+    utils/utils.py): ``output`` (B, classes) scores, ``target`` (B,) labels,
+    numpy or tensors; ties rank as numpy's default argsort ranks them, as in
+    fenet."""
+    import numpy as np
+
+    output = np.asarray(output.detach().cpu() if hasattr(output, "detach") else output)
+    target = np.asarray(target.detach().cpu() if hasattr(target, "detach") else target)
+    pred = np.argsort(-output, axis=1)[:, :max(topk)].T  # (maxk, B)
+    correct = pred == target[None, :]
+    return [float(correct[:k].reshape(-1).sum()) * 100.0 / target.shape[0] for k in topk]

@@ -267,7 +267,8 @@ def test_train_steps_match_fenet(mode, num_points, tmp_path):
 
 def test_train_config_matches_fenet():
     """The same fields with the same defaults; the checkpoint container is
-    the one deliberate difference (fenet's flax/orbax are not ported)."""
+    the one deliberate difference (the port defaults to the reference's
+    .pth.tar and writes fenet's flax .ckpt on request)."""
     ours = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxTrainConfig)}
     assert ours.keys() == theirs.keys()
@@ -340,10 +341,12 @@ def test_options_of_later_slices_raise(tmp_path, monkeypatch):
             Trainer(gen, TrainConfig(**{field: 2}), device="cpu")
     with pytest.raises(ValueError, match="emd_impl"):
         Trainer(gen, TrainConfig(emd_impl="exact"), device="cpu")
-    for fmt in ("flax", "orbax"):
-        with pytest.raises(NotImplementedError, match=fmt):
+    # fenet's flax container is ported (tests/test_torch_checkpoint_flax.py);
+    # its orbax one raises, and so does a container neither has.
+    for fmt, error in (("orbax", NotImplementedError), ("pickle", ValueError)):
+        with pytest.raises(error, match=fmt):
             checkpoint.save_checkpoint({}, False, "c", str(tmp_path), 1, fmt=fmt)
-        with pytest.raises(NotImplementedError, match=fmt):
+        with pytest.raises(error, match=fmt):
             train_net("c", TrainConfig(ckpt_format=fmt, dir_path=str(tmp_path)),
                       train_ds=[], val_ds=[], model=gen, device="cpu")
     assert not list(tmp_path.iterdir())
