@@ -13,12 +13,12 @@ its parallel training (two ranks on torch.distributed, dp with sync-BN,
 the Megatron decoder split, the ring chamfer; NCCL in a world of one), and
 the rest (fscore, the dense auction above 8192 points, a profiler trace,
 the golden-table recorder, Grad-CAM, SimpleGenerator and the render and
-heatmap CLIs), and fenet's flax checkpoint container (train, resume, eval
-and deploy through it) at full width with seeded random weights, at 1024
-points and again at 2048 (phases 4-6 below, run at each; the Pix3D,
-serving, data, parallel, analysis, goldens, viz and checkpoint phases at
-1024). Each phase prints one
-JSON line; any failure raises, and the script exits non-zero.
+heatmap CLIs), and fenet's flax and orbax checkpoint containers (train,
+resume, eval and deploy through them) at full width with seeded random
+weights, at 1024 points and again at 2048 (phases 4-6 below, run at each;
+the Pix3D, serving, data, parallel, analysis, goldens, viz and checkpoint
+phases at 1024). Each phase prints one JSON line; any failure raises, and
+the script exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles every kernel in parallel and prints the build seconds.
@@ -162,18 +162,24 @@ JSON line; any failure raises, and the script exits non-zero.
    each writing the files fenet's would, with no kernel launch; Grad-CAM on
    the card against the CPU (GRADCAM_ATOL) at the final map and stage3, and
    SimpleGenerator's forward against the CPU (1e-4 of max|ref|).
-14. checkpoint (after viz): fenet's flax container at full width.
+14. checkpoint (after viz): fenet's flax and orbax containers at full
+   width. First fenet's committed orbax fixture (tests/fixtures/
+   fenet_orbax: OCDBT, zstd) read on this host through libzstd.so.1, every
+   leaf bit for bit against tests/make_orbax_fixture.py's seeded arrays.
    train_net for 2 epochs of one step at batch TRAIN_BATCH with
-   ckpt_format "flax", validating at epoch 2 (K1 2 and K3 1 launches a
-   step and a batch); its final state saved through both containers (the
-   flax bytes equal train_net's own file) and loaded back, weights, BN
-   statistics, both Adam moments and the step bit for bit; save and load
-   seconds and GB/s, and a load's peak resident set in a CPU process of its
-   own. A third epoch resumed from each container: identical CD and EMD.
-   eval_shapenet on a tree holding only model_best.ckpt and on one holding
-   only model_best.pth.tar: identical metrics. export_deploy --format flax
-   and --format torch in float32 and bf16, predict from each: the flax
-   files' clouds equal the torch files' bit for bit, no kernel launched.
+   ckpt_format "orbax", validating at epoch 2 (K1 2 and K3 1 launches a
+   step and a batch); its final state saved through the three containers
+   (the orbax arrays equal train_net's own directory's) and loaded back,
+   weights, BN statistics, both Adam moments and the step bit for bit;
+   save and load seconds and GB/s, and a load's peak resident set in a CPU
+   process of its own. A third epoch resumed from each container's
+   model_best: identical CD and EMD. eval_shapenet on a tree holding only
+   model_best.orbax, only model_best.ckpt or only model_best.pth.tar:
+   identical metrics. export_deploy --format flax from the .ckpt and from
+   the .orbax (the same bytes) and --format torch, in float32 and bf16,
+   predict from each: the clouds equal the torch files' bit for bit, no
+   kernel launched. Last the .orbax's chunks compressed with zstd at
+   fenet's level 1 (ZSTD_compress) and loaded, timed, bit for bit.
 
 The line before the last is one JSON object with every kernel's numbers
 (K1, K3 and K4 also with their launches in the finetune, finetune_net,
@@ -2603,19 +2609,101 @@ def rss_of_load(path: str) -> dict:
     return info
 
 
+def tree_bytes(path: Path) -> int:
+    """The bytes of a file, or of every file under a directory."""
+    if path.is_file():
+        return path.stat().st_size
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def same_tree(a: Path, b: Path, skip=()) -> bool:
+    """Whether two directories hold the same files with the same bytes
+    (names in ``skip`` aside)."""
+    import filecmp
+
+    names = sorted(str(f.relative_to(a)) for f in a.rglob("*") if f.is_file())
+    if names != sorted(str(f.relative_to(b)) for f in b.rglob("*") if f.is_file()):
+        return False
+    return all(n in skip or filecmp.cmp(a / n, b / n, shallow=False) for n in names)
+
+
+def fixture_check() -> dict:
+    """fenet's committed orbax fixture (tests/fixtures/fenet_orbax, written
+    by fenet: OCDBT, zstd) read by the port on this host, every leaf held
+    bit for bit against the seeded arrays of tests/make_orbax_fixture.py
+    (numpy alone)."""
+    import importlib.util
+
+    import torch
+
+    from fenet_torch.native import zstd
+    from fenet_torch.train import orbax
+
+    spec = importlib.util.spec_from_file_location(
+        "make_orbax_fixture", ROOT / "tests" / "make_orbax_fixture.py")
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for key in tree:
+                yield from leaves(tree[key], path + (key,))
+        else:
+            yield path, tree
+
+    t0 = time.perf_counter()
+    got = orbax.load(str(fixture.CHECKPOINT))
+    load_s = time.perf_counter() - t0
+    pairs = list(zip(leaves(got), leaves(fixture.seeded_tree())))
+    for (path, a), (want_path, b) in pairs:
+        a = a.view(torch.int16).numpy() if isinstance(a, torch.Tensor) else a
+        if path != want_path or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"the orbax fixture's {path} differs from its seeded array")
+    if len(pairs) != len(list(leaves(fixture.seeded_tree()))):
+        raise AssertionError("the orbax fixture holds another tree than its seeded one")
+    return {"leaves": len(pairs), "bit_equal": True, "load_s": load_s,
+            "bytes": tree_bytes(fixture.CHECKPOINT), "libzstd": zstd.SONAME}
+
+
+def compress_orbax(path: Path, level: int = 1) -> dict:
+    """Rewrite every chunk of the port's (uncompressed) orbax directory as
+    one zstd frame at ``level`` (libzstd's ZSTD_compress; fenet's level is
+    1) and name the compressor in its .zarray, as fenet's arrays are."""
+    from fenet_torch.native import zstd
+
+    t0 = time.perf_counter()
+    raw = packed = 0
+    for zarray in sorted(path.glob("*/.zarray")):
+        meta = json.loads(zarray.read_text())
+        for chunk in zarray.parent.iterdir():
+            if chunk.name != ".zarray":
+                data = chunk.read_bytes()
+                frame = zstd.compress(data, level)
+                chunk.write_bytes(frame)
+                raw, packed = raw + len(data), packed + len(frame)
+        zarray.write_text(json.dumps({**meta, "compressor": {"id": "zstd", "level": level}}))
+    return {"level": level, "chunk_bytes": raw, "compressed_bytes": packed,
+            "ratio": packed / raw, "compress_s": time.perf_counter() - t0}
+
+
 def phase_checkpoint(device) -> dict:
-    """fenet's flax container at full width (N_POINTS). train_net for 2
-    epochs of one step at batch TRAIN_BATCH in ckpt_format "flax",
-    validating at epoch 2; its final state saved again through both
-    containers (the flax bytes must equal train_net's own file), each timed,
-    and loaded back (timed here and, for the peak resident set, in a CPU
-    process of its own): weights, BN statistics, both Adam moments and the
-    step bit for bit. A third epoch resumed from each container: the first
-    resumed step's CD and EMD identical. eval_shapenet on a tree holding
-    only model_best.ckpt and on one holding only model_best.pth.tar:
-    identical metrics. export_deploy --format flax and --format torch in
-    float32 and bf16, then predict from each: the flax files' clouds equal
-    the torch files' bit for bit. Returns each run's launch counts."""
+    """fenet's flax and orbax containers at full width (N_POINTS). First
+    fenet's committed orbax fixture read on this host, bit for bit.
+    train_net for 2 epochs of one step at batch TRAIN_BATCH in ckpt_format
+    "orbax", validating at epoch 2; its final state saved again through the
+    three containers (the orbax arrays must equal train_net's own
+    directory's), each timed, and loaded back (timed here and, for the peak
+    resident set, in a CPU process of its own): weights, BN statistics,
+    both Adam moments and the step bit for bit. A third epoch resumed from
+    each container's model_best: the first resumed step's CD and EMD
+    identical. eval_shapenet on a tree holding only model_best.orbax, only
+    model_best.ckpt or only model_best.pth.tar: identical metrics.
+    export_deploy --format flax from the .ckpt and from the .orbax and
+    --format torch, in float32 and bf16, then predict from each: the deploy
+    files from the .orbax equal those from the .ckpt, and every cloud the
+    torch files'. Last, the .orbax's chunks compressed with zstd at fenet's
+    level 1 and loaded, timed, bit for bit. Returns each run's launch
+    counts."""
     import dataclasses
     import filecmp
     import shutil
@@ -2626,7 +2714,8 @@ def phase_checkpoint(device) -> dict:
 
     from fenet_torch.cli import eval_shapenet, export_deploy, predict
     from fenet_torch.data.synthetic import SyntheticShapeNet, write_synthetic_shapenet
-    from fenet_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from fenet_torch.train import flax_msgpack, orbax
+    from fenet_torch.train.checkpoint import SUFFIXES, load_checkpoint, save_checkpoint
     from fenet_torch.train.config import TrainConfig
     from fenet_torch.train.driver import train_net
     from fenet_torch.utils.ply import load_pointcloud
@@ -2639,6 +2728,7 @@ def phase_checkpoint(device) -> dict:
     val_ds = SyntheticShapeNet(n_models=1, num_points=n, seed=1)
     steps_per_epoch = len(train_ds) // TRAIN_BATCH
     per_step = {"chamfer_nn": 2, "emd_auction": 1, "emd_auction_stream": 0, "sinkhorn": 0}
+    formats = ("orbax", "flax", "torch")
 
     def expect(label, steps):
         launches = launch_counts()
@@ -2649,77 +2739,95 @@ def phase_checkpoint(device) -> dict:
 
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
-    counts, info = {}, {"model": model_name(n), "batch": TRAIN_BATCH}
+    counts, info = {}, {"model": model_name(n), "batch": TRAIN_BATCH,
+                        "fenet_orbax_fixture": fixture_check()}
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         tmp = Path(tmp)
         gen = make_model(device, head_scale=1.0, n=n)
         cfg = TrainConfig(batch_size=TRAIN_BATCH, num_points=n, nepoch=2, validate_epochs=(2,),
                           train_save_freq=0, dir_path=str(tmp / "run"), manual_seed=0,
-                          ckpt_format="flax")
+                          ckpt_format="orbax")
         reset_counts()
         out = train_net(cat, cfg, train_ds, val_ds, model=gen, device=device)
         torch.cuda.synchronize()
-        counts["train_net"] = expect("train_net", 2 * steps_per_epoch
-                                     + -(-len(val_ds) // TRAIN_BATCH))
+        counts["orbax_train_net"] = expect("train_net", 2 * steps_per_epoch
+                                           + -(-len(val_ds) // TRAIN_BATCH))
         run_dir = Path(out["ckpt_dir"])
-        written = run_dir / f"{cat}_checkpoint_2.ckpt"
-        best = run_dir / "model_best.ckpt"
-        if (not filecmp.cmp(best, written, shallow=False)
-                or json.loads((run_dir / "model_best.ckpt.json").read_text())["epoch"] != 2
-                or list(run_dir.glob("*.pth.tar"))):
+        written = run_dir / f"{cat}_checkpoint_2.orbax"
+        best = run_dir / "model_best.orbax"
+        if (not same_tree(best, written)
+                or json.loads((run_dir / "model_best.orbax.json").read_text())["epoch"] != 2
+                or list(run_dir.glob("*.pth.tar")) or list(run_dir.glob("*.ckpt"))):
             raise AssertionError(f"train_net wrote {sorted(p.name for p in run_dir.iterdir())}")
-        best.unlink()  # the disk holds three 2 GB checkpoints at most
+        shutil.rmtree(best)  # the disk holds three 2 GB checkpoints at most
 
-        # The same state through both containers, each timed.
+        # The same state through the three containers, each timed; each
+        # becomes its tree's model_best.
         state_dict, optimizer = out["trainer"].full_state()
         del out
-        meta = json.loads((run_dir / f"{cat}_checkpoint_2.ckpt.json").read_text())
+        meta = json.loads((run_dir / f"{cat}_checkpoint_2.orbax.json").read_text())
         state = {"state_dict": state_dict, "optimizer": optimizer, **meta}
         paths, container = {}, {}
-        for fmt in ("flax", "torch"):
+        for fmt in formats:
             ckpt_dir = tmp / fmt / cat / "checkpoints"
             t0 = time.perf_counter()
-            paths[fmt] = save_checkpoint(state, False, cat, str(ckpt_dir), 2, fmt=fmt)
+            path = Path(save_checkpoint(state, False, cat, str(ckpt_dir), 2, fmt=fmt))
             save_s = time.perf_counter() - t0
-            size = Path(paths[fmt]).stat().st_size
-            container[fmt] = {"file_bytes": size, "save_s": save_s,
-                              "save_gb_per_s": size / save_s / 1e9}
-        if not filecmp.cmp(paths["flax"], written, shallow=False):
-            raise AssertionError("the flax save of train_net's final state differs from "
-                                 "train_net's own checkpoint")
-        shutil.rmtree(tmp / "run")
+            size = tree_bytes(path)
+            container[fmt] = {"bytes": size, "files": sum(1 for f in path.rglob("*")
+                                                           if f.is_file()) if path.is_dir() else 1,
+                              "save_s": save_s, "save_gb_per_s": size / save_s / 1e9}
+            if fmt == "orbax":
+                if not same_tree(path, written, skip=(orbax.CHECKPOINT_METADATA,)):
+                    raise AssertionError("the orbax save of train_net's final state differs "
+                                         "from train_net's own checkpoint")
+                shutil.rmtree(tmp / "run")
+            paths[fmt] = ckpt_dir / f"model_best{SUFFIXES[fmt]}"
+            path.rename(paths[fmt])
+            if fmt != "torch":
+                Path(str(path) + ".json").rename(str(paths[fmt]) + ".json")
         del state, state_dict, optimizer
         blobs = {}
-        for fmt in ("flax", "torch"):
+        for fmt in formats:
             t0 = time.perf_counter()
-            blobs[fmt] = load_checkpoint(paths[fmt])
+            blobs[fmt] = load_checkpoint(str(paths[fmt]))
             load_s = time.perf_counter() - t0
             container[fmt].update(load_s=load_s,
-                                  load_gb_per_s=container[fmt]["file_bytes"] / load_s / 1e9,
-                                  child_load=rss_of_load(paths[fmt]))
-        a, b = blobs["torch"], blobs["flax"]
-        extra = set(a["state_dict"]) - set(b["state_dict"])
-        if extra != {k for k in a["state_dict"] if k.endswith("num_batches_tracked")}:
-            raise AssertionError(f"the containers hold different tensors: {sorted(extra)[:5]}")
-        for key, value in b["state_dict"].items():
-            if not torch.equal(value, a["state_dict"][key]):
-                raise AssertionError(f"{key} differs between the containers")
-        if a["optimizer"]["state"].keys() != b["optimizer"]["state"].keys():
-            raise AssertionError("the containers hold Adam state for different parameters")
-        for i, entry in a["optimizer"]["state"].items():
-            for key in ("step", "exp_avg", "exp_avg_sq"):
-                got = b["optimizer"]["state"][i][key]
-                if not (got.dtype == entry[key].dtype and torch.equal(got, entry[key])):
-                    raise AssertionError(f"Adam's {key} of parameter {i} differs")
-        scalars = {k: v for k, v in a.items() if k not in ("state_dict", "optimizer")}
-        if json.dumps(scalars) != json.dumps({k: b[k] for k in scalars}):
-            raise AssertionError(f"the scalars differ: {scalars} vs {b}")
-        tensors = len(b["state_dict"]) + 3 * len(b["optimizer"]["state"])
+                                  load_gb_per_s=container[fmt]["bytes"] / load_s / 1e9,
+                                  child_load=rss_of_load(str(paths[fmt])))
+        # The containers' own readers alone (files opened and mapped, no
+        # page of an array touched): what the container adds to a load.
+        for fmt, read in (("orbax", orbax.load), ("flax", flax_msgpack.load)):
+            t0 = time.perf_counter()
+            read(str(paths[fmt]))
+            container[fmt]["reader_only_s"] = time.perf_counter() - t0
+        a = blobs["torch"]
+        extra = {k for k in a["state_dict"] if k.endswith("num_batches_tracked")}
+        for fmt in ("flax", "orbax"):
+            b = blobs[fmt]
+            if set(a["state_dict"]) - set(b["state_dict"]) != extra:
+                raise AssertionError(f"the {fmt} container holds other tensors than the "
+                                     ".pth.tar")
+            for key, value in b["state_dict"].items():
+                if not torch.equal(value, a["state_dict"][key]):
+                    raise AssertionError(f"{key} differs between {fmt} and the .pth.tar")
+            if a["optimizer"]["state"].keys() != b["optimizer"]["state"].keys():
+                raise AssertionError(f"{fmt} holds Adam state for other parameters")
+            for i, entry in a["optimizer"]["state"].items():
+                for key in ("step", "exp_avg", "exp_avg_sq"):
+                    got = b["optimizer"]["state"][i][key]
+                    if not (got.dtype == entry[key].dtype and torch.equal(got, entry[key])):
+                        raise AssertionError(f"Adam's {key} of parameter {i} differs in {fmt}")
+            scalars = {k: v for k, v in a.items() if k not in ("state_dict", "optimizer")}
+            if json.dumps(scalars) != json.dumps({k: b[k] for k in scalars}):
+                raise AssertionError(f"the scalars differ: {scalars} vs {fmt}'s")
+        tensors = len(blobs["orbax"]["state_dict"]) + 3 * len(blobs["orbax"]["optimizer"]["state"])
+        reference = blobs.pop("torch")
         del a, b, blobs
 
-        # A third epoch resumed from each container.
+        # A third epoch resumed from each container's model_best.
         resumed = {}
-        for fmt in ("flax", "torch"):
+        for fmt in formats:
             gen = make_model(device, head_scale=1.0, n=n)
             rcfg = dataclasses.replace(cfg, dir_path=str(tmp / fmt), resume=True, nepoch=3,
                                        validate_epochs=(), ckpt_format=fmt)
@@ -2727,32 +2835,27 @@ def phase_checkpoint(device) -> dict:
             t0 = time.perf_counter()
             hist = train_net(cat, rcfg, train_ds, val_ds, model=gen, device=device)["history"]
             torch.cuda.synchronize()
-            counts[f"resume_{fmt}"] = expect(f"resume from {fmt}", steps_per_epoch)
+            counts["orbax_resume" if fmt == "orbax" else f"resume_{fmt}"] = expect(
+                f"resume from model_best{SUFFIXES[fmt]}", steps_per_epoch)
             if [h["epoch"] for h in hist] != [3]:
                 raise AssertionError(f"the resume from {fmt} ran epochs {hist}")
             resumed[fmt] = {"wall_s": time.perf_counter() - t0,
                             "chamfer_loss": hist[0]["chamfer_loss"],
                             "emd_loss": hist[0]["emd_loss"]}
-            for path in (tmp / fmt / cat / "checkpoints").glob(f"{cat}_checkpoint_3*"):
-                path.unlink()
-        if any(resumed["flax"][k] != resumed["torch"][k] for k in ("chamfer_loss", "emd_loss")):
+            (paths[fmt].parent / "logging.log").unlink()
+        if any(resumed[fmt][k] != resumed["torch"][k] for fmt in formats
+               for k in ("chamfer_loss", "emd_loss")):
             raise AssertionError(f"the resumed steps differ: {resumed}")
         del gen
 
-        # eval_shapenet on a tree holding only model_best.ckpt, and on one
-        # holding only model_best.pth.tar.
+        # eval_shapenet on a tree holding only one container's model_best.
         tree = tmp / "tree"
         write_synthetic_shapenet(str(tree), cats=(cat,), models_per_cat=1, num_points=n)
         metrics, eval_s = {}, {}
-        for fmt, suffix in (("flax", ".ckpt"), ("torch", ".pth.tar")):
-            # The epoch-2 checkpoint becomes the tree's only file (and sidecar),
-            # model_best; the resume's log goes.
-            src = tmp / fmt / cat / "checkpoints" / f"{cat}_checkpoint_2{suffix}"
-            (src.parent / "logging.log").unlink()
-            best = src.parent / f"model_best{suffix}"
-            src.rename(best)
-            if fmt == "flax":
-                (src.parent / (src.name + ".json")).rename(best.parent / (best.name + ".json"))
+        for fmt in formats:
+            if sorted(p.name for p in paths[fmt].parent.iterdir()) != sorted(
+                    [paths[fmt].name] + ([paths[fmt].name + ".json"] if fmt != "torch" else [])):
+                raise AssertionError(f"the {fmt} tree holds {list(paths[fmt].parent.iterdir())}")
             reset_counts()
             t0 = time.perf_counter()
             res = eval_shapenet.main([
@@ -2763,51 +2866,72 @@ def phase_checkpoint(device) -> dict:
                 "--data_dir_pcl", str(tree / "ShapeNet_pointclouds")])[cat]
             torch.cuda.synchronize()
             eval_s[fmt] = time.perf_counter() - t0
-            counts[f"eval_{fmt}"] = expect(f"eval_shapenet on model_best{suffix}",
-                                           -(-res["samples"] // 64))
+            counts["orbax_eval" if fmt == "orbax" else f"eval_{fmt}"] = expect(
+                f"eval_shapenet on model_best{SUFFIXES[fmt]}", -(-res["samples"] // 64))
             metrics[fmt] = {k: res[k] for k in ("ChamferDistance", "EMD_distance", "samples")}
-            if sorted(p.name for p in best.parent.iterdir() if p.suffix != ".log") != sorted(
-                    [best.name] + ([best.name + ".json"] if fmt == "flax" else [])):
-                raise AssertionError(f"the {fmt} tree holds {list(best.parent.iterdir())}")
-        if metrics["flax"] != metrics["torch"] or not all(
-                np.isfinite(metrics["flax"][k]) for k in ("ChamferDistance", "EMD_distance")):
+        if any(metrics[fmt] != metrics["torch"] for fmt in formats) or not all(
+                np.isfinite(metrics["orbax"][k]) for k in ("ChamferDistance", "EMD_distance")):
             raise AssertionError(f"eval_shapenet differs between the containers: {metrics}")
 
-        # export_deploy in both containers and dtypes, then predict.
+        # export_deploy from each container and dtype (fenet's deploy
+        # container from the .orbax and the .ckpt), then predict.
         img_dir = tmp / "images"
         img_dir.mkdir()
         for i, png in enumerate(sorted((tree / "ShapeNetRendering").rglob("*.png"))[:8]):
             shutil.copyfile(png, img_dir / f"view{i}.png")
-        deploy, clouds = {}, {}
-        for fmt in ("flax", "torch"):
+        deploy, clouds, files = {}, {}, {}
+        for src, out_fmt, suffix in (("flax", "flax", ".ckpt"), ("orbax", "flax", ".ckpt"),
+                                     ("torch", "torch", ".pth")):
             for dtype in ("float32", "bfloat16"):
-                suffix = ".ckpt" if fmt == "flax" else ".pth"
                 reset_counts()
                 t0 = time.perf_counter()
                 path = export_deploy.main([
-                    "--model", str(tmp / fmt / "%s" / "checkpoints"), "--category", cat,
+                    "--model", str(tmp / src / "%s" / "checkpoints"), "--category", cat,
                     *arch, "--device", str(device), "--dtype", dtype,
-                    "--format", fmt, "--out", str(tmp / f"deploy_{dtype}{suffix}")])
+                    "--format", out_fmt, "--out", str(tmp / f"deploy_{src}_{dtype}{suffix}")])
                 export_s = time.perf_counter() - t0
                 plys = predict.main([
                     "--deploy_ckpt", path, "--images", str(img_dir),
-                    "--out_dir", str(tmp / f"predict_{fmt}_{dtype}"), "--batchSize", "8",
+                    "--out_dir", str(tmp / f"predict_{src}_{dtype}"), "--batchSize", "8",
                     "--ply_binary", "--device", str(device)])
-                assert_no_launches(f"export_deploy/predict ({fmt}, {dtype})")
-                clouds[fmt, dtype] = np.stack([load_pointcloud(p) for p in sorted(plys)])
-                deploy[f"{fmt}_{dtype}"] = {"file_bytes": Path(path).stat().st_size,
+                assert_no_launches(f"export_deploy/predict ({src}, {dtype})")
+                clouds[src, dtype] = np.stack([load_pointcloud(p) for p in sorted(plys)])
+                files[src, dtype] = path
+                deploy[f"{src}_{dtype}"] = {"file_bytes": Path(path).stat().st_size,
                                             "export_s": export_s}
         for dtype in ("float32", "bfloat16"):
-            got, want = clouds["flax", dtype], clouds["torch", dtype]
-            if got.shape != (8, n, 3) or not np.isfinite(got).all() or not np.array_equal(
-                    got, want):
-                raise AssertionError(f"predict from model_deploy.ckpt ({dtype}) differs from "
-                                     f"the torch deploy checkpoint's: shapes {got.shape}, "
-                                     f"{want.shape}")
+            if not filecmp.cmp(files["orbax", dtype], files["flax", dtype], shallow=False):
+                raise AssertionError(f"export_deploy from model_best.orbax ({dtype}) wrote "
+                                     "another file than from model_best.ckpt")
+            want = clouds["torch", dtype]
+            for src in ("flax", "orbax"):
+                got = clouds[src, dtype]
+                if got.shape != (8, n, 3) or not np.isfinite(got).all() or not np.array_equal(
+                        got, want):
+                    raise AssertionError(f"predict from the {src} deploy file ({dtype}) differs "
+                                         f"from the torch deploy file's: shapes {got.shape}, "
+                                         f"{want.shape}")
+
+        # fenet's compression: the .orbax's chunks as zstd frames at level 1.
+        packed = compress_orbax(paths["orbax"])
+        t0 = time.perf_counter()
+        blob = load_checkpoint(str(paths["orbax"]))
+        load_s = time.perf_counter() - t0
+        for key, value in blob["state_dict"].items():
+            if not torch.equal(value, reference["state_dict"][key]):
+                raise AssertionError(f"{key} differs after the zstd round trip")
+        for i, entry in reference["optimizer"]["state"].items():
+            for key, value in entry.items():
+                if not torch.equal(blob["optimizer"]["state"][i][key], value):
+                    raise AssertionError(f"Adam's {key} of parameter {i} differs after zstd")
+        container["orbax_zstd"] = {**packed, "bytes": tree_bytes(paths["orbax"]),
+                                   "load_s": load_s,
+                                   "load_decoded_gb_per_s": packed["chunk_bytes"] / load_s / 1e9}
+        del blob, reference
     info.update(container=container, tensors=tensors, bit_equal_loads=True,
                 resumed_epoch_3=resumed, resumed_identical=True, eval=metrics,
                 eval_s=eval_s, eval_identical=True, deploy=deploy,
-                predict_bit_equal=True, launches=counts)
+                deploy_from_orbax_equal=True, predict_bit_equal=True, launches=counts)
     emit({"phase": "checkpoint", "nvidia_smi": nvidia_smi(), **info})
     return counts
 

@@ -77,9 +77,9 @@ def add_common_args(parser: argparse.ArgumentParser):
     parser.add_argument("--ckpt_format", type=str, default="torch",
                         choices=("torch", "flax", "orbax"),
                         help="checkpoint container: 'torch', the reference's "
-                             ".pth.tar (default), or 'flax', fenet's .ckpt "
-                             "with its JSON sidecar; fenet's 'orbax' "
-                             "container is not ported and raises")
+                             ".pth.tar (default), 'flax', fenet's .ckpt, or "
+                             "'orbax', fenet's .orbax directory (both with "
+                             "fenet's JSON sidecar)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch "
                              "versions of the kernels")
@@ -130,11 +130,13 @@ DEFAULT_TRAIN_CATS = ["02828884"]
 def require_checkpoints(parser: argparse.ArgumentParser, pattern: str,
                         ids: Iterable[str]) -> Dict[str, str]:
     """``{id: {pattern % id}/model_best.pth.tar}``, or fenet's
-    ``model_best.ckpt`` where there is no ``.pth.tar``; a missing file is a
+    ``model_best.ckpt`` where there is no ``.pth.tar``, or its
+    ``model_best.orbax`` where there is neither; a missing checkpoint is a
     usage error, raised before any data is read or any directory is made."""
     paths = {i: best_checkpoint(pattern % i) for i in ids}
     missing = [os.path.join(pattern % i, BEST) for i, p in paths.items() if p is None]
     if missing:
-        parser.error(f"no checkpoint at {', '.join(missing)} (nor model_best.ckpt); train "
+        parser.error(f"no checkpoint at {', '.join(missing)} (nor model_best.ckpt or "
+                     "model_best.orbax); train "
                      "the category first or point --model at its checkpoint dir")
     return paths

@@ -3,7 +3,8 @@
 
 Pix3D's chair, sofa and table are scored with the weights of their ShapeNet
 category, ``{--model % id}/model_best.pth.tar`` (the reference's
-container) or fenet's ``model_best.ckpt``, through ``evaluate_dataset``:
+container) or fenet's ``model_best.ckpt`` or ``model_best.orbax``, through
+``evaluate_dataset``:
 ICP-aligned CD and EMD on the masked real images.
 
     python -m fenet_torch.cli.eval_pix3d --device cuda --data_dir data/pix3d/ \\

@@ -3,7 +3,7 @@
 
 Weights come from ``{--model % cat}/model_best.pth.tar``, the reference's
 checkpoint format (``{"state_dict": ...}``), or where there is none from
-fenet's ``model_best.ckpt``.
+fenet's ``model_best.ckpt``, failing that its ``model_best.orbax``.
 
     python -m fenet_torch.cli.eval_shapenet --model out/%s/checkpoints/ \\
         --splits_path data/splits --data_dir_imgs ... --data_dir_pcl ...

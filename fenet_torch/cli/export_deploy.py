@@ -7,9 +7,12 @@ float32 or bfloat16.
         --category 02828884 --dtype bfloat16 --format export
 
 The input is ``{--model % category}/model_best.pth.tar`` (the reference's
-container) or, where there is none, fenet's ``model_best.ckpt``, or a
-direct path to either. ``--format torch`` writes the folded state_dict with
-``torch.save`` (default ``<ckpt_dir>/model_deploy.pth``) and a JSON sidecar
+container) or, where there is none, fenet's ``model_best.ckpt``, failing
+that its ``model_best.orbax``, or a direct path to any of them (an orbax
+checkpoint is a directory, as in fenet). fenet writes no deploy ``.orbax``,
+so neither does this; :func:`load_deploy_checkpoint` reads one all the
+same, as fenet's ``load_checkpoint`` would. ``--format torch`` writes the
+folded state_dict with ``torch.save`` (default ``<ckpt_dir>/model_deploy.pth``) and a JSON sidecar
 with the architecture and dtype, for :func:`load_deploy_checkpoint`;
 ``--format flax`` writes fenet's ``model_deploy.ckpt`` (``{"params"}`` of
 the folded tree in fenet's layouts, flax msgpack) with fenet's sidecar,
@@ -33,7 +36,7 @@ from fenet_torch.models.convert import (
     variables_from_state_dict,
 )
 from fenet_torch.models.generator import Generator, deploy_from_state, to_deploy
-from fenet_torch.train import flax_msgpack
+from fenet_torch.train import flax_msgpack, orbax
 from fenet_torch.train.checkpoint import BEST, FLAX_SUFFIX, best_checkpoint
 from fenet_torch.utils.device import resolve_device
 
@@ -46,7 +49,7 @@ def main(argv=None):
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--model", type=str, default="./output/fenet/%s/checkpoints/",
                         help="checkpoint dir pattern (%%s = category) or a direct "
-                             "path to a .pth.tar or a .ckpt")
+                             "path to a .pth.tar, a .ckpt or a .orbax directory")
     parser.add_argument("--category", type=str, default="02828884")
     parser.add_argument("--out", type=str, default=None,
                         help="output path; default <ckpt_dir>/model_deploy.pth "
@@ -75,7 +78,9 @@ def main(argv=None):
 
     path = opt.model % opt.category if "%s" in opt.model else opt.model
     if os.path.isdir(path):
-        path = best_checkpoint(path) or os.path.join(path, BEST)
+        path = os.path.normpath(path)  # an orbax input's outputs go beside it
+        if not orbax.is_container(path):
+            path = best_checkpoint(path) or os.path.join(path, BEST)
     with torch.device(device):
         gen = Generator(num_points=opt.num_points, backbone=opt.backbone,
                         fine_width=opt.fine_width, mid_width=opt.mid_width)
@@ -107,16 +112,18 @@ def main(argv=None):
 
 def load_deploy_checkpoint(path: str, device="cuda"):
     """(deploy_model, dtype) from a checkpoint written with ``--format
-    torch`` or, by its ``.ckpt`` suffix, fenet's or the port's ``--format
-    flax``: the Generator rebuilt from the sidecar, in eval mode on
-    ``device``, with no fold at load. Every weight is cast to the sidecar's
+    torch``, by its ``.ckpt`` suffix fenet's or the port's ``--format
+    flax``, or an orbax directory of the same tree: the Generator rebuilt
+    from the sidecar, in eval mode on ``device``, with no fold at load. Every weight is cast to the sidecar's
     dtype, so the model cannot serve at another dtype than the one
     returned."""
     device = resolve_device(device)
     with open(path + ".json") as f:
         meta = json.load(f)
     dtype = DTYPES[meta.get("dtype", "float32")]
-    if path.endswith(FLAX_SUFFIX):
+    if os.path.isdir(path):
+        state = state_dict_from_jax(orbax.load(path))
+    elif path.endswith(FLAX_SUFFIX):
         state = state_dict_from_jax(flax_msgpack.load(path))
     else:
         state = torch.load(path, map_location="cpu", weights_only=True)

@@ -7,7 +7,7 @@ same flags, plus ``--device``.
         --data_dir_imgs ... --data_dir_pcl ... --layer stage3
 
 Weights come from ``{--model % category}/model_best.pth.tar`` (or fenet's
-``model_best.ckpt``). Writes
+``model_best.ckpt`` or ``model_best.orbax``). Writes
 ``{category}_{i:03d}_cam[_{layer}].png``, the CAM blended onto the input,
 for the first ``--n_samples`` val samples.
 """

@@ -46,7 +46,8 @@ def main(argv=None):
     parser.add_argument("--deploy_ckpt", type=str, required=True,
                         help="folded checkpoint from fenet_torch.cli.export_deploy "
                              "(its sidecar gives the architecture and dtype), "
-                             "fenet's model_deploy.ckpt, or a *.pt2 artifact "
+                             "fenet's model_deploy.ckpt, an orbax directory of "
+                             "the same tree, or a *.pt2 artifact "
                              "(--format export)")
     parser.add_argument("--images", type=str, required=True,
                         help="image file, directory, or glob pattern")

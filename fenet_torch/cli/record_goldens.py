@@ -20,7 +20,7 @@ with ``--icp_patience 0``, no relative plateau exit), the reference eval EMD
         --splits_path .../splits/ --out goldens_shapenet.json
 
     # the port's or fenet's checkpoints ({--model % cat}/model_best.pth.tar,
-    # else model_best.ckpt):
+    # else model_best.ckpt, else model_best.orbax):
     python -m fenet_torch.cli.record_goldens \\
         --model ./output/fenet/%s/checkpoints/ --out goldens_shapenet.json
 
@@ -59,7 +59,8 @@ from fenet_torch.utils.device import resolve_device
 def checkpoint_path(opt, cat: str) -> str:
     """``--torch_model`` (``%s`` = category, or one file for every
     category) if given, else ``{--model % cat}/model_best.pth.tar`` or,
-    where there is none, fenet's ``model_best.ckpt``; a missing file raises
+    where there is none, fenet's ``model_best.ckpt`` or ``model_best.orbax``;
+    a missing checkpoint raises
     FileNotFoundError."""
     if opt.torch_model:
         path = opt.torch_model % cat if "%s" in opt.torch_model else opt.torch_model
@@ -93,7 +94,8 @@ def main(argv=None):
     parser.add_argument("--num_points", type=int, default=1024)
     parser.add_argument("--model", type=str, default="./output/fenet/%s/checkpoints/",
                         help="the port's checkpoint dir pattern (%%s = category), "
-                             "holding model_best.pth.tar or fenet's model_best.ckpt")
+                             "holding model_best.pth.tar or fenet's model_best.ckpt "
+                             "or model_best.orbax")
     parser.add_argument("--torch_model", type=str, default=None,
                         help="reference .pth.tar pattern (%%s = category, else one "
                              "file for every category); takes precedence over "

@@ -6,7 +6,7 @@ same flags, plus ``--device``.
         --model out/%s/checkpoints/ --out_dir pix3d_renders/
 
 Each Pix3D category is predicted with its ShapeNet category's weights,
-``{--model % id}/model_best.pth.tar`` or ``model_best.ckpt``
+``{--model % id}/model_best.pth.tar``, ``model_best.ckpt`` or ``model_best.orbax``
 (``eval_pix3d.PIX3D_TO_SHAPENET``),
 and writes ``{out_dir}/{category}/{name}_gt.png`` and ``{name}_pr.png`` in
 the reference's fixed frame (red points, ±0.45 axes, azim -45, elev

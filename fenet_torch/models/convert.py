@@ -216,8 +216,8 @@ def param_names(keys) -> list:
 
 def load_reference_checkpoint(model: nn.Module, path: str) -> nn.Module:
     """Load a checkpoint's weights into ``model`` with ``strict=True``: the
-    reference's ``.pth.tar`` (``{"state_dict": ...}``) or fenet's flax
-    ``.ckpt``, by its suffix (``fenet_torch.train.checkpoint``)."""
+    reference's ``.pth.tar`` (``{"state_dict": ...}``), fenet's flax
+    ``.ckpt`` or its orbax directory (``fenet_torch.train.checkpoint``)."""
     from fenet_torch.train.checkpoint import load_checkpoint  # it imports this module
 
     model.load_state_dict(load_checkpoint(path)["state_dict"], strict=True)

@@ -99,8 +99,9 @@ def dtype_name(dtype: torch.dtype) -> str:
 def build_forward(deploy_ckpt: str, max_batch: int, device="cuda", devices=None):
     """(forward, meta): the deploy forward at the fixed serving batch over
     :func:`serving_devices` (every visible card for ``cuda``), from a folded
-    checkpoint (``export_deploy --format torch``, or by its ``.ckpt``
-    suffix fenet's ``model_deploy.ckpt`` and ``--format flax``) or, by its
+    checkpoint (``export_deploy --format torch``, by its ``.ckpt``
+    suffix fenet's ``model_deploy.ckpt`` and ``--format flax``, or an orbax
+    directory of the same tree) or, by its
     ``.pt2`` suffix, a frozen artifact (``--format export``). ``meta["max_batch"]``
     is ``max_batch`` rounded up to the device count, ``meta["devices"]``
     the count."""

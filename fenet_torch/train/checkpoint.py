@@ -1,4 +1,4 @@
-"""Checkpoints in two containers, with the reference's directory and
+"""Checkpoints in three containers, with the reference's directory and
 best-copy semantics (counterpart of ``fenet/train/checkpoint.py``).
 
 - ``fmt="torch"`` (the port's default): the reference's ``.pth.tar``,
@@ -15,13 +15,20 @@ best-copy semantics (counterpart of ``fenet/train/checkpoint.py``).
   ``exp_avg_sq`` (the same L2-in-the-gradient Adam), the moments in their
   parameters' fenet layouts. fenet reads these files and the port reads
   fenet's.
+- ``fmt="orbax"``: fenet's orbax PyTree directory,
+  ``{category}_checkpoint_{epoch}.orbax`` (:mod:`fenet_torch.train.orbax`),
+  holding the same tree, with the same sidecar. The port reads fenet's
+  (an OCDBT store of zstd-compressed zarr arrays, which needs
+  ``libzstd.so.1``) and writes orbax's other layout, a directory per array,
+  uncompressed, which fenet restores.
 
 A best checkpoint is copied to ``model_best`` with the same suffix (and its
-sidecar). :func:`load_checkpoint` tells the containers apart by suffix and
-returns the port's blob either way: ``{"state_dict", "optimizer", ...the
-scalars}``, on the CPU. A flax blob's optimizer groups hold only their
-``params`` (fenet keeps no hyperparameters); the trainer that loads it
-keeps its own. fenet's ``orbax`` container is not ported and raises.
+sidecar), through a temporary file or directory. :func:`load_checkpoint`
+tells the containers apart as fenet does (a directory is an orbax
+checkpoint) and by suffix, and returns the port's blob from any of them:
+``{"state_dict", "optimizer", ...the scalars}``, on the CPU. A flax or
+orbax blob's optimizer groups hold only their ``params`` (fenet keeps no
+hyperparameters); the trainer that loads it keeps its own.
 """
 
 from __future__ import annotations
@@ -37,23 +44,18 @@ import numpy as np
 import torch
 
 from fenet_torch.models.convert import param_names, state_dict_from_jax, variables_from_state_dict
-from fenet_torch.train import flax_msgpack
+from fenet_torch.train import flax_msgpack, orbax
 
 SUFFIX = ".pth.tar"
 FLAX_SUFFIX = ".ckpt"
-SUFFIXES = {"torch": SUFFIX, "flax": FLAX_SUFFIX}
+ORBAX_SUFFIX = ".orbax"
+SUFFIXES = {"torch": SUFFIX, "flax": FLAX_SUFFIX, "orbax": ORBAX_SUFFIX}
 BEST = "model_best" + SUFFIX
 # The port's blob entries that are not scalars of the sidecar.
 _ARRAYS = ("state_dict", "optimizer")
 
 
 def check_format(fmt: str) -> None:
-    if fmt == "orbax":
-        raise NotImplementedError(
-            "checkpoint format 'orbax' is not ported to fenet_torch: fenet's orbax "
-            "directory is a tensorstore OCDBT store of zarr arrays, and reading it needs "
-            "tensorstore. Write it across with fenet's flax container "
-            "(--ckpt_format flax, a .ckpt file), which fenet_torch reads and writes")
     if fmt not in SUFFIXES:
         raise ValueError(f"unknown checkpoint format {fmt!r}; one of {sorted(SUFFIXES)}")
 
@@ -68,7 +70,17 @@ def _replace(src_write, path: str) -> None:
 
 
 def _copy(src: str, dst: str) -> None:
-    _replace(lambda tmp: shutil.copyfile(src, tmp), dst)
+    """Copy a file, or an orbax directory (replacing ``dst``, as fenet does:
+    a directory cannot be renamed over another)."""
+    if not os.path.isdir(src):
+        _replace(lambda tmp: shutil.copyfile(src, tmp), dst)
+        return
+    tmp = dst + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutil.copytree(src, tmp)
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    os.replace(tmp, dst)
 
 
 def save_checkpoint(state: Dict[str, Any], is_best: bool, category: str,
@@ -87,7 +99,10 @@ def save_checkpoint(state: Dict[str, Any], is_best: bool, category: str,
             _copy(path, best)
         return path
     tree = flax_tree(state["state_dict"], state.get("optimizer"))
-    _replace(lambda tmp: flax_msgpack.dump(tree, tmp), path)
+    if fmt == "orbax":
+        orbax.dump(tree, path)  # through its own temporary directory
+    else:
+        _replace(lambda tmp: flax_msgpack.dump(tree, tmp), path)
     meta = {k: v for k, v in state.items() if k not in _ARRAYS}
     _replace(lambda tmp: _write_json(meta, tmp), path + ".json")
     if is_best:
@@ -103,16 +118,20 @@ def _write_json(meta: Dict[str, Any], path: str) -> None:
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Load a checkpoint onto the CPU as the port's blob: a ``.pth.tar``
-    as it is, a flax ``.ckpt`` converted (its arrays view the file, see
-    :func:`flax_msgpack.load`), with its sidecar's scalars."""
+    as it is; an orbax directory or a flax ``.ckpt`` converted (their arrays
+    view the files where they can, see :func:`flax_msgpack.load` and
+    :func:`orbax.load`), with its sidecar's scalars."""
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"checkpoint not found: {path}; train the category first "
             "(checkpoints are written at the validation epochs, default "
             "10/30/50; see --validate_epochs)")
-    if not path.endswith(FLAX_SUFFIX):
+    if os.path.isdir(path):
+        tree = orbax.load(path)
+    elif path.endswith(FLAX_SUFFIX):
+        tree = flax_msgpack.load(path)
+    else:
         return torch.load(path, map_location="cpu", weights_only=True)
-    tree = flax_msgpack.load(path)
     blob = {"state_dict": state_dict_from_jax(tree)}
     if "opt_state" in tree:
         blob["optimizer"] = adam_from_optax(tree["opt_state"], blob["state_dict"])
@@ -123,10 +142,11 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 
 def checkpoint_epoch(path: str) -> int:
-    """The epoch a checkpoint records (0 if none): from a ``.ckpt``'s
-    sidecar, or a ``.pth.tar`` (mapped, its tensors unread, where it is in
-    torch's zip format, which ``mmap`` needs; a legacy file is read)."""
-    if path.endswith(FLAX_SUFFIX):
+    """The epoch a checkpoint records (0 if none): from a ``.ckpt``'s or an
+    orbax directory's sidecar, or a ``.pth.tar`` (mapped, its tensors
+    unread, where it is in torch's zip format, which ``mmap`` needs; a
+    legacy file is read)."""
+    if path.endswith(FLAX_SUFFIX) or os.path.isdir(path):
         if not os.path.exists(path + ".json"):
             return 0
         with open(path + ".json") as f:
@@ -152,11 +172,11 @@ def latest_checkpoint(ckpt_dir: str, category: str,
 
 
 def best_checkpoint(ckpt_dir: str) -> Optional[str]:
-    """``ckpt_dir``'s ``model_best.pth.tar``, failing that its
-    ``model_best.ckpt`` (fenet's), or None."""
-    for suffix in (SUFFIX, FLAX_SUFFIX):
+    """``ckpt_dir``'s ``model_best.pth.tar``, failing that fenet's
+    ``model_best.ckpt``, failing that its ``model_best.orbax``, or None."""
+    for suffix in SUFFIXES.values():  # in that order
         path = os.path.join(ckpt_dir, "model_best" + suffix)
-        if os.path.isfile(path):
+        if os.path.exists(path):
             return path
     return None
 

@@ -1,8 +1,8 @@
 """Structured training config with the reference's CLI defaults
 (counterpart of ``fenet/train/config.py``): the same fields and defaults,
 except ``ckpt_format``, whose default is the reference's ``.pth.tar``
-container ("torch"); fenet's "flax" container is written on request and
-its "orbax" one raises here (``train.checkpoint.check_format``).
+container ("torch"); fenet's "flax" and "orbax" containers are written
+on request (``train.checkpoint``).
 """
 
 from __future__ import annotations
@@ -65,7 +65,8 @@ class TrainConfig:
     # validation epochs
     validate_epochs: Sequence[int] = (10, 30, 50)
     # checkpoint container: 'torch' = the reference's .pth.tar, 'flax' =
-    # fenet's .ckpt with its JSON sidecar
+    # fenet's .ckpt, 'orbax' = fenet's .orbax directory (both with a JSON
+    # sidecar)
     ckpt_format: str = "torch"
     # eval-time ICP and EMD settings
     eval_icp_iterations: int = 1024

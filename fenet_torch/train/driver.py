@@ -104,7 +104,7 @@ def load_pretrained_backbone(model: Generator, path: str) -> None:
 
 
 def _newest_checkpoint(ckpt_dir: str, cat: str, fmt: str, logger):
-    """The highest-epoch checkpoint in either container, as fenet's resume
+    """The highest-epoch checkpoint in any container, as fenet's resume
     picks it: a periodic save after the last validation must win over an
     older model_best. At equal epochs ``fmt``'s container wins, and a
     model_best over a periodic save."""

@@ -377,11 +377,12 @@ def test_resume_picks_the_newest_in_either_container(tmp_path):
 
 
 def test_check_format():
-    checkpoint.check_format("torch")
-    checkpoint.check_format("flax")
-    with pytest.raises(NotImplementedError, match="tensorstore"):
-        checkpoint.check_format("orbax")
-    with pytest.raises(ValueError):
+    """The three containers are accepted (fenet's orbax one since it is
+    ported, tests/test_torch_checkpoint_orbax.py); any other raises."""
+    for fmt in ("torch", "flax", "orbax"):
+        checkpoint.check_format(fmt)
+    assert checkpoint.SUFFIXES["orbax"] == ".orbax"
+    with pytest.raises(ValueError, match="pickle"):
         checkpoint.check_format("pickle")
 
 

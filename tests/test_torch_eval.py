@@ -271,12 +271,14 @@ def test_eval_cli_on_synthetic_tree(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every fenet_torch module pulls in no jax, flax or fenet."""
+    """Importing every fenet_torch module pulls in no jax, flax, fenet,
+    orbax, tensorstore or zarr."""
     code = (
         "import importlib, pkgutil, sys, fenet_torch\n"
         "for m in pkgutil.walk_packages(fenet_torch.__path__, 'fenet_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'flax', 'fenet'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'flax', 'fenet', 'orbax', 'tensorstore', 'zarr'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('fenet_torch')]))\n"
     )

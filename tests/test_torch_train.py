@@ -341,15 +341,27 @@ def test_options_of_later_slices_raise(tmp_path, monkeypatch):
             Trainer(gen, TrainConfig(**{field: 2}), device="cpu")
     with pytest.raises(ValueError, match="emd_impl"):
         Trainer(gen, TrainConfig(emd_impl="exact"), device="cpu")
-    # fenet's flax container is ported (tests/test_torch_checkpoint_flax.py);
-    # its orbax one raises, and so does a container neither has.
-    for fmt, error in (("orbax", NotImplementedError), ("pickle", ValueError)):
-        with pytest.raises(error, match=fmt):
-            checkpoint.save_checkpoint({}, False, "c", str(tmp_path), 1, fmt=fmt)
-        with pytest.raises(error, match=fmt):
-            train_net("c", TrainConfig(ckpt_format=fmt, dir_path=str(tmp_path)),
-                      train_ds=[], val_ds=[], model=gen, device="cpu")
+    # A container neither fenet nor the port has raises, before anything
+    # is written.
+    with pytest.raises(ValueError, match="pickle"):
+        checkpoint.save_checkpoint({}, False, "c", str(tmp_path), 1, fmt="pickle")
+    with pytest.raises(ValueError, match="pickle"):
+        train_net("c", TrainConfig(ckpt_format="pickle", dir_path=str(tmp_path)),
+                  train_ds=[], val_ds=[], model=gen, device="cpu")
     assert not list(tmp_path.iterdir())
+    # fenet's flax and orbax containers are ported
+    # (tests/test_torch_checkpoint_{flax,orbax}.py): orbax saves and loads
+    # back, and train_net takes it.
+    state = {"state_dict": gen.state_dict(), "epoch": 1}
+    path = checkpoint.save_checkpoint(state, True, "c", str(tmp_path / "ckpt"), 1, fmt="orbax")
+    for name in (path, str(tmp_path / "ckpt" / "model_best.orbax")):
+        blob = checkpoint.load_checkpoint(name)
+        assert blob["epoch"] == 1 and "optimizer" not in blob
+        for key, value in blob["state_dict"].items():
+            assert torch.equal(value, gen.state_dict()[key]), key
+    out = train_net("c", TrainConfig(ckpt_format="orbax", nepoch=0, dir_path=str(tmp_path)),
+                    train_ds=[], val_ds=[], model=gen, device="cpu")
+    assert out["history"] == []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(gen, TrainConfig())
