@@ -1,6 +1,14 @@
 """Smoke run of the PyTorch port (fenet_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases a,b,...]
+
+With no arguments it runs every phase below, which is the whole check. For
+development, ``--phases`` runs a chosen set in the same order, with the
+phases whose results they take (``timing`` and ``wide``'s own eval and
+train, ``analysis`` after ``eval``, ``serve`` after ``deploy``, ``parallel``
+after ``data``, ``viz`` after ``goldens``): kernels, eval, train, timing,
+analysis, pix3d, deploy, serve, data, parallel, goldens, viz, checkpoint,
+tools, wide (the 2048-point eval, train and timing).
 
 Builds the hand-written CUDA kernels from ``fenet_torch/csrc`` and drives
 the port's eval path (RepVGG-A2 generator -> batched ICP -> auction EMD +
@@ -11,14 +19,16 @@ fold, export_deploy, the HTTP server, predict) and its on-disk data path
 (prepare_data, the native batch loader, train_net fed from a written tree),
 its parallel training (two ranks on torch.distributed, dp with sync-BN,
 the Megatron decoder split, the ring chamfer; NCCL in a world of one), and
-the rest (fscore, the dense auction above 8192 points, a profiler trace,
+the rest (fscore, the dense auction and the Sinkhorn loss above 8192
+points, the reference's golden metrics, a profiler trace,
 the golden-table recorder, Grad-CAM, SimpleGenerator and the render and
 heatmap CLIs), and fenet's flax and orbax checkpoint containers (train,
-resume, eval and deploy through them) at full width with seeded random
-weights, at 1024 points and again at 2048 (phases 4-6 below, run at each;
-the Pix3D, serving, data, parallel, analysis, goldens, viz and checkpoint
-phases at 1024). Each phase prints one JSON line; any failure raises, and
-the script exits non-zero.
+resume, eval and deploy through them), and the port's three evidence
+tools (eps-scaling and Sinkhorn training equivalence, finetune convergence)
+at full width with seeded random weights, at 1024 points and again at
+2048 (phases 4-6 below, run at each; the Pix3D, serving, data, parallel,
+analysis, goldens, viz, checkpoint and tools phases at 1024). Each phase
+prints one JSON line; any failure raises, and the script exits non-zero.
 
 1. device: requires a CUDA card; prints nvidia-smi's name and power limit.
 2. build: compiles every kernel in parallel and prints the build seconds.
@@ -147,9 +157,16 @@ the script exits non-zero.
    cloud), K1 2 launches a call; the dense auction (earth_mover_distance
    above 8192 points) at DENSE_SHAPE in eval settings on dyadic clouds
    against the CPU (bit for bit, and the EMD metric to 1e-2), its calls
-   counted apart and no kernel launched, its time and peak memory;
-   profiling.trace over one eval step, which must write one Chrome trace
-   holding CUDA kernel events.
+   counted apart and no kernel launched, its time and peak memory; the
+   Sinkhorn potentials above the kernel's 8192 points (SINKHORN_LARGE, the
+   plain version on the card) against the CPU at rtol 1e-4 / atol 1e-5, the
+   kernel wrapper raising there, and one Trainer(emd_impl="sinkhorn") step
+   at 8448 points, batch 2, full width (finite losses, K1 2): no K6/K7
+   launch; K1 and K3 on the reference's four golden pairs of clouds
+   (tests/goldens/metric_goldens.npz) at tests/test_reference_parity.py's
+   bounds, the auction also at 3000 iterations within 0.5% above the
+   optimal matching; profiling.trace over one eval step, which must write
+   one Chrome trace holding CUDA kernel events.
 12. goldens (after parallel): record_goldens at full width, the eval init
    as one .pth.tar, on a synthetic tree of the 13 categories (one model, 24
    views; GOLDENS_EMPTY without data, so skipped), batch 64, strict ICP: K1
@@ -180,12 +197,21 @@ the script exits non-zero.
    predict from each: the clouds equal the torch files' bit for bit, no
    kernel launched. Last the .orbax's chunks compressed with zstd at
    fenet's level 1 (ZSTD_compress) and loaded, timed, bit for bit.
+15. tools (after checkpoint): python -m fenet_torch.tools.{eps_scaling_equiv,
+   sinkhorn_equiv,finetune_convergence} at their defaults (A2, 1024 points;
+   two arms of 24 steps at batch 128; 20 warm and twice 30 finetune steps
+   at batch 32), records into a temporary directory: each arm's launches
+   (the counts set to 0 before it) and per-step ms, the walls, their ratio,
+   the cross-eval, the finetune pass rule. Every loss finite, the pass rule
+   holding, each arm's kernel launched (K3 in the strict, adaptive and
+   auction arms, K5 in the adaptive one, K6 in the Sinkhorn one), both arms
+   of a tool at the same step-0 chamfer loss (rtol 1e-6).
 
 The line before the last is one JSON object with every kernel's numbers
-(K1, K3 and K4 also with their launches in the finetune, finetune_net,
-pix3d, data, parallel, analysis, goldens, viz and checkpoint phases; every kernel with
-its launches on the serving paths, 0); the last line is ``{"ok": true,
-"device": {...}}``.
+(each also with its launches in the finetune, finetune_net, pix3d, data,
+parallel, analysis, goldens, viz, checkpoint and tools phases, K5 on the
+tools' arms; every kernel with its launches on the serving paths, 0); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -339,6 +365,13 @@ GOLDENS_EMD_REL = 5e-2
 # dense auction's (B, N), N above the kernels' 8192.
 FSCORE_THRESHOLDS = (1e-4, 1e-2)
 DENSE_SHAPE = (2, 8200)
+# The Sinkhorn loss above the kernel's 8192 points: the potentials at (B, N =
+# M, iterations), then one Sinkhorn train step at N, batch B (33·256, the
+# first generator size above 8192).
+SINKHORN_LARGE = (2, 8448, 3)
+# The reference's golden metrics (tests/make_goldens.py), held as
+# tests/test_reference_parity.py holds fenet to them.
+GOLDENS_REF = ROOT / "tests" / "goldens" / "metric_goldens.npz"
 # Phase viz: Grad-CAM's [0, 1] map on the card against the CPU, at full
 # width, to the CPU tests' tolerance against fenet (tests/test_torch_viz.py;
 # 6.0e-7 measured on an H100, PERF.md §5).
@@ -460,6 +493,7 @@ def reset_counts() -> None:
     chamfer.nn_kernel.launches = 0
     emd.auction_kernel.launches = 0
     emd.auction_kernel.stream_launches = 0
+    emd.auction_kernel.scaled_launches = 0
     sinkhorn.potentials_kernel.launches = 0
 
 
@@ -2416,6 +2450,9 @@ def phase_analysis(device, pred, gt) -> dict:
     if dense["calls"] != 2 or not dense["bit_exact"] or not dense["emd_metric_rel_err"] <= 1e-2:
         raise AssertionError(f"the dense auction: {dense}")
 
+    out["sinkhorn_large"] = sinkhorn_large(device)
+    out["goldens_ref"] = goldens_ref(device)
+
     gen = make_model(device, n=N_POINTS)
     step = make_eval_step(gen, device=device)
     images = torch.zeros((gt.shape[0], 128, 128, 3), dtype=torch.uint8, device=device)
@@ -2439,6 +2476,126 @@ def phase_analysis(device, pred, gt) -> dict:
         raise AssertionError(f"profiling.trace wrote {files}, {kernels} kernel events")
     shutil.rmtree(log_dir)
     return out
+
+
+def sinkhorn_large(device) -> dict:
+    """The Sinkhorn loss above the kernel's MAX_N, where the op runs its
+    plain version on the card, as fenet runs its XLA loop: the potentials
+    at SINKHORN_LARGE against the plain version on the CPU (rtol 1e-4, atol
+    1e-5), the kernel wrapper still raising there, and one
+    Trainer(emd_impl="sinkhorn") step at full width, batch B (finite
+    losses, K1 2). No K6/K7 launch in either; returns their launches."""
+    import numpy as np
+    import torch
+
+    from fenet_torch.models.generator import Generator, init_random_
+    from fenet_torch.ops import sinkhorn
+    from fenet_torch.train.config import TrainConfig
+    from fenet_torch.train.trainer import Trainer
+
+    b, n, iters = SINKHORN_LARGE
+    rng = np.random.RandomState(13)
+    x, y = (torch.tensor(rng.rand(b, n, 3).astype(np.float32)) for _ in range(2))
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f, g = sinkhorn.sinkhorn_potentials(x.to(device), y.to(device), 1e-4, iters)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    f_p, g_p = sinkhorn._potentials_plain(x, y, 1e-4, iters, 0.25)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    gap = max(float(((got.cpu() - ref).abs() - 1e-4 * ref.abs()).max())
+              for got, ref in ((f, f_p), (g, g_p)))
+    try:
+        sinkhorn.potentials_kernel(x.to(device), y.to(device), 1e-4, iters, 0.25)
+        raised = False
+    except ValueError:
+        raised = True
+    potentials = {"B": b, "N": n, "iters": iters, "card_ms": card_ms, "cpu_ms": cpu_ms,
+                  "max_abs_err": max(float((f.cpu() - f_p).abs().max()),
+                                     float((g.cpu() - g_p).abs().max())),
+                  "max_err_over_rtol": gap, "atol": 1e-5, "kernel_raises": raised,
+                  "max_memory_allocated_bytes": peak, "launches": launch_counts()}
+    emit({"phase": "analysis", "step": "sinkhorn_potentials_large", **potentials})
+    if not gap <= 1e-5 or not raised:
+        raise AssertionError(f"the Sinkhorn potentials above {sinkhorn.MAX_N} points: "
+                             f"{potentials}")
+
+    gen = Generator(num_points=n, **MODEL)
+    init_random_(gen, torch.Generator().manual_seed(0))
+    trainer = Trainer(gen, TrainConfig(batch_size=b, num_points=n, emd_impl="sinkhorn", **MODEL),
+                      device=device)
+    images = (rng.rand(b, 128, 128, 3) * 255).astype(np.float32)
+    points = (rng.rand(b, n, 3) * 0.9).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = {k: float(v) for k, v in trainer.train_step(images, points, TRAIN_EPOCH,
+                                                         5e-4).items()}
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    emit({"phase": "analysis", "step": "sinkhorn_train_step_large", "model": model_name(n),
+          "batch": b, "losses": losses, "step_ms": step_ms,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    want = {"chamfer_nn": 2, "emd_auction": 0, "emd_auction_stream": 0, "sinkhorn": 0}
+    if launches != want or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"the Sinkhorn train step at {n} points: {losses}, launched "
+                             f"{launches}, not {want}")
+    return launches
+
+
+def goldens_ref(device) -> dict:
+    """K1 and K3 on the reference's four golden pairs of clouds at
+    tests/test_reference_parity.py's bounds: CD to rtol 1e-5 with the 64
+    index heads equal, the F-score to 2.5/4096, the eval-settings EMD within
+    15% of the optimal matching, and the auction at 3000 iterations in [opt
+    - 1e-4, 1.005·opt] with 99% of the columns matched. Returns the
+    launches (K1 4, K3 2)."""
+    import numpy as np
+    import torch
+
+    from fenet_torch.losses.fscore import fscore
+    from fenet_torch.ops.chamfer import chamfer_distance
+    from fenet_torch.ops.emd import earth_mover_distance
+
+    data = np.load(GOLDENS_REF)
+    rng = np.random.RandomState(int(data["seed"]))
+    a, b = (torch.tensor(rng.rand(4, 1024, 3).astype(np.float32), device=device)
+            for _ in range(2))
+    reset_counts()
+    d1, d2, i1, i2 = chamfer_distance(a, b)
+    fs = [float(v) for v in fscore(a, b)]
+    at_eval = earth_mover_distance(a, b, 0.005, 50)[0].sqrt().mean(1).double().cpu().numpy()
+    dist, ass = earth_mover_distance(a, b, 0.005, 3000)
+    converged = dist.sqrt().mean(1).double().cpu().numpy()
+    launches = launch_counts()
+    opt = data["emd_optimal_sqrt_mean"]
+    cd = (d1.mean(1) + d2.mean(1)).cpu().numpy()
+    matched = [len(torch.unique(ass[k])) for k in range(ass.shape[0])]
+    rec = {"cd_rel_err": max(float(np.abs(got / data[key] - 1).max()) for got, key in (
+               (cd, "cd_per_sample"), (d1.mean(1).cpu().numpy(), "dist1_mean"),
+               (d2.mean(1).cpu().numpy(), "dist2_mean"))),
+           "heads_equal": bool(np.array_equal(i1[:, :64].cpu().numpy(), data["idx1_head"])
+                               and np.array_equal(i2[:, :64].cpu().numpy(), data["idx2_head"])),
+           "fscore_abs_err": float(np.abs(np.asarray(fs) - [
+               data["fscore"], data["precision_1"], data["precision_2"]]).max()),
+           "emd_eval_rel_to_opt": (at_eval / opt - 1).tolist(),
+           "emd_converged_rel_to_opt": (converged / opt - 1).tolist(),
+           "columns_matched": matched, "launches": launches}
+    emit({"phase": "analysis", "step": "goldens_ref", **rec})
+    ok = (rec["cd_rel_err"] <= 1e-5 and rec["heads_equal"]
+          and rec["fscore_abs_err"] <= 2.5 / 4096
+          and (np.abs(at_eval - opt) <= 0.15 * opt).all()
+          and (converged >= opt - 1e-4).all() and (converged <= 1.005 * opt).all()
+          and min(matched) >= int(0.99 * 1024)
+          and launches == {"chamfer_nn": 4, "emd_auction": 2, "emd_auction_stream": 0,
+                           "sinkhorn": 0})
+    if not ok:
+        raise AssertionError(f"the reference's goldens on the card: {rec}")
+    return launches
 
 
 def phase_viz(device, goldens: dict) -> dict:
@@ -2936,6 +3093,134 @@ def phase_checkpoint(device) -> dict:
     return counts
 
 
+def phase_tools(device) -> dict:
+    """The port's evidence tools (fenet_torch/tools/{eps_scaling_equiv,
+    sinkhorn_equiv,finetune_convergence}.py) at their default settings on
+    the card, each writing its record into a temporary directory. Each arm
+    (each finetune phase, each cross-eval) runs with the counts set to 0
+    before it and read after it; its per-step ms on the host clock. Asserted:
+    every loss finite, the finetune pass rule, each arm's kernel launched
+    (the auction in the strict, adaptive and auction arms, K5 in the
+    adaptive one, K6 in the Sinkhorn one), and both arms of a tool (both
+    finetune phases) at the same step-0 chamfer loss to rtol 1e-6: the same
+    weights and batch before any update. Returns the launches by path."""
+    import contextlib
+    import io
+    import tempfile
+
+    from fenet_torch.ops import emd
+    from fenet_torch.tools import (equiv_common, eps_scaling_equiv, finetune_convergence,
+                                   sinkhorn_equiv)
+
+    runs = []
+
+    def counted(module, name, label):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            runs.append({"label": label(args), "seconds": time.perf_counter() - t0,
+                         "launches": {**launch_counts(),
+                                      "emd_auction_scaled": emd.auction_kernel.scaled_launches},
+                         # train_arm: (losses, walls, trainer); the trainer is dropped.
+                         "out": out[:2] if name == "train_arm" else out})
+            return out
+
+        return fn, wrapper
+
+    patches = [(equiv_common, "train_arm", lambda args: args[3]),
+               (sinkhorn_equiv, "score", lambda args: "cross_eval"),
+               (finetune_convergence, "run_phase",
+                lambda args: ("warm", "faithful", "squash")[sum(
+                    r["label"] in ("warm", "faithful", "squash") for r in runs)])]
+    originals = []
+    out = {}
+    t_phase = time.perf_counter()
+    try:
+        for module, name, label in patches:
+            fn, wrapper = counted(module, name, label)
+            originals.append((module, name, fn))
+            setattr(module, name, wrapper)
+        with tempfile.TemporaryDirectory() as tmp:
+            for tool in (eps_scaling_equiv, sinkhorn_equiv, finetune_convergence):
+                del runs[:]
+                short = tool.__name__.rsplit(".", 1)[1]
+                log = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(log):
+                    record = tool.run(["--device", str(device), "--out",
+                                       str(Path(tmp) / f"{short}.json")])
+                seconds = time.perf_counter() - t0
+                out.update(tools_check(short, record, runs, seconds))
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    emit({"phase": "tools", "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def tools_check(tool: str, record: dict, runs: list, seconds: float) -> dict:
+    """One tool's summary line and checks (phase_tools); its launches by
+    path ``tools_<tool>_<arm>``."""
+    import numpy as np
+
+    def finite(tree) -> bool:
+        if isinstance(tree, dict):
+            return all(finite(v) for v in tree.values())
+        if isinstance(tree, list):
+            return all(finite(v) for v in tree)
+        return not isinstance(tree, float) or bool(np.isfinite(tree))
+
+    arms, launches = {}, {}
+    for run in runs:
+        label, out = run["label"], run["out"]
+        entry = {"launches": run["launches"], "seconds": run["seconds"]}
+        if isinstance(out, tuple):  # a train arm: per-step losses and walls
+            entry["step_ms"] = [w * 1e3 for w in out[1]]
+            entry["step0_chamfer"] = out[0][0]["chamfer_loss"]
+        elif isinstance(out, list):  # a finetune phase's trace
+            entry["step_ms_mean"] = run["seconds"] * 1e3 / len(out)
+            entry["step0_chamfer"] = out[0]["cd"]
+        else:
+            entry["scores"] = out
+        # A cross-eval scores the arm trained just before it.
+        key = label if label != "cross_eval" else f"{label}_{list(arms)[-1]}"
+        arms[key] = entry
+        launches[f"tools_{tool}_{key}"] = run["launches"]
+    summary = {k: record[k] for k in record if k.endswith("ratio") or k.endswith("rel_diff")
+               or k in ("all_finite", "reconstruction_preserved", "recon_head_mean5",
+                        "recon_tail_mean5", "squash_recon_head_mean5",
+                        "squash_recon_tail_mean5", "wall_seconds", "device")}
+    for key in ("strict", "adaptive", "auction", "sinkhorn"):
+        if key in record:
+            summary[key] = {k: v for k, v in record[key].items() if k != "per_step"}
+    emit({"phase": "tools", "tool": tool, "seconds": seconds, "arms": arms, **summary})
+
+    trained = {k: v for k, v in arms.items() if "step0_chamfer" in v}
+    kernel = {"phases=1": "emd_auction", "phases=3": "emd_auction_scaled",
+              "auction": "emd_auction", "sinkhorn": "sinkhorn", "warm": "emd_auction",
+              "faithful": "emd_auction", "squash": "emd_auction"}
+    problems = []
+    if not finite(record):
+        problems.append("a loss is not finite")
+    if tool == "finetune_convergence" and not (record["all_finite"]
+                                               and record["reconstruction_preserved"]):
+        problems.append("the finetune pass rule failed")
+    for label, arm in trained.items():
+        if not arm["launches"][kernel[label]] > 0 or not arm["launches"]["chamfer_nn"] > 0:
+            problems.append(f"{label} did not launch {kernel[label]}: {arm['launches']}")
+    if tool == "eps_scaling_equiv" and trained["phases=1"]["launches"]["emd_auction_scaled"]:
+        problems.append("the strict arm ran eps-scaling phases")
+    firsts = [arm["step0_chamfer"] for label, arm in trained.items() if label != "warm"]
+    if len(firsts) != 2 or abs(firsts[0] - firsts[1]) > 1e-6 * abs(firsts[0]):
+        problems.append(f"the arms' step-0 chamfer losses differ: {firsts}")
+    if problems:
+        raise AssertionError(f"tool {tool}: {problems}")
+    return launches
+
+
 def phase_timing(launches, pred, gt, train):
     """The kernels line. K1 and K3 on the eval path's inputs (the first eval
     batch: aligned predictions vs gt) at the eval settings; K5 and K6/K7 on
@@ -3130,9 +3415,38 @@ def phase_timing_wide(launches, pred, gt, train):
     return [eval_row, train_row, k7_row]
 
 
-def main() -> int:
+# main's phases in their order; ``--phases`` picks some, and a picked phase
+# brings the phases whose results it takes (NEEDS).
+PHASES = ("kernels", "eval", "train", "timing", "analysis", "pix3d", "deploy", "serve", "data",
+          "parallel", "goldens", "viz", "checkpoint", "tools", "wide")
+NEEDS = {"timing": ("eval", "train"), "analysis": ("eval",), "serve": ("deploy",),
+         "parallel": ("data",), "viz": ("goldens",)}
+
+
+def chosen_phases(argv) -> list:
+    """The phases to run, in main's order: every phase without arguments
+    (the whole check), else ``--phases a,b,...`` and what those need."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of fenet_torch on one CUDA card.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    picked = [p for p in parser.parse_args(argv).phases.split(",") if p]
+    unknown = set(picked) - set(PHASES)
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}; choose from {','.join(PHASES)}")
+    todo = set(picked)
+    while True:
+        more = {need for p in todo for need in NEEDS.get(p, ())} - todo
+        if not more:
+            return [p for p in PHASES if p in todo]
+        todo |= more
+
+
+def main(argv=None) -> int:
     import torch
 
+    run = chosen_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
               file=sys.stderr)
@@ -3149,7 +3463,7 @@ def main() -> int:
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "phases": run})
 
     t0 = time.perf_counter()
     reports = _build.build()
@@ -3158,52 +3472,75 @@ def main() -> int:
                if "entry function" in ln or "Used" in ln or "spill" in ln]
         for name, rep in reports.items()}})
 
-    phase_kernels(device)
-    phase_kernels_train(device)
-    phase_kernels_stream(device)
-    launches, pred, gt = phase_eval(device)
-    train = phase_train(device)
-    rows = phase_timing(launches, pred, gt, train)
-    analysis = phase_analysis(device, pred, gt)
-    pix3d = phase_pix3d(device)
-    gen, deploy_launches = phase_deploy(device)
-    serving = {"deploy": deploy_launches, **phase_serve(device, gen)}
-    del gen
-    data = phase_data(device, train["auction"]["step_ms"])
-    parallel = phase_parallel(device, data)
-    goldens = phase_goldens(device)
-    viz = phase_viz(device, goldens)
-    ckpt = phase_checkpoint(device)
-    launches, pred, gt = phase_eval(device, WIDE_POINTS)
-    train_wide = phase_train(device, WIDE_POINTS)
-    rows += phase_timing_wide(launches, pred, gt, train_wide)
     # The launches of the finetune, finetune_net, pix3d, data, parallel,
-    # analysis, goldens, viz and checkpoint phases (the ranks' counts; fscore's a call,
-    # goldens' a run of 12 batches), beside each kernel's main-path count.
-    new_paths = {"finetune": train["finetune"], "finetune_wide": train_wide["finetune"],
-                 "finetune_net": train["finetune_net"], "pix3d": pix3d,
-                 "data_prepare_data": data["prepare_data"],
-                 "data_train_net_native": data["native"],
-                 "data_train_net_per_item": data["per_item"], **parallel,
-                 "fscore": analysis["fscore"], "dense_auction": analysis["dense_auction"],
-                 "goldens": goldens["launches"],
-                 **{f"viz_{name}": counts for name, counts in viz.items()},
-                 **{f"checkpoint_{name}": counts for name, counts in ckpt.items()}}
+    # analysis, goldens, viz, checkpoint and tools phases (the ranks' counts;
+    # fscore's a call, goldens' a run of 12 batches, each tool's arm by arm),
+    # beside each kernel's main-path count; the serving paths' apart.
+    rows, new_paths, serving = [], {}, {}
+    train = None
+    if "kernels" in run:
+        phase_kernels(device)
+        phase_kernels_train(device)
+        phase_kernels_stream(device)
+    if "eval" in run:
+        launches, pred, gt = phase_eval(device)
+    if "train" in run:
+        train = phase_train(device)
+        new_paths.update(finetune=train["finetune"], finetune_net=train["finetune_net"])
+    if "timing" in run:
+        rows = phase_timing(launches, pred, gt, train)
+    if "analysis" in run:
+        analysis = phase_analysis(device, pred, gt)
+        new_paths.update({name: analysis[name] for name in (
+            "fscore", "dense_auction", "sinkhorn_large", "goldens_ref")})
+    if "pix3d" in run:
+        new_paths["pix3d"] = phase_pix3d(device)
+    if "deploy" in run:
+        gen, serving["deploy"] = phase_deploy(device)
+    if "serve" in run:
+        serving.update(phase_serve(device, gen))
+        del gen
+    if "data" in run:
+        data = phase_data(device, train["auction"]["step_ms"] if train else None)
+        new_paths.update(data_prepare_data=data["prepare_data"],
+                         data_train_net_native=data["native"],
+                         data_train_net_per_item=data["per_item"])
+    if "parallel" in run:
+        new_paths.update(phase_parallel(device, data))
+    if "goldens" in run:
+        goldens = phase_goldens(device)
+        new_paths["goldens"] = goldens["launches"]
+    if "viz" in run:
+        new_paths.update({f"viz_{name}": counts
+                          for name, counts in phase_viz(device, goldens).items()})
+    if "checkpoint" in run:
+        new_paths.update({f"checkpoint_{name}": counts
+                          for name, counts in phase_checkpoint(device).items()})
+    if "tools" in run:
+        new_paths.update(phase_tools(device))
+    if "wide" in run:
+        launches, pred, gt = phase_eval(device, WIDE_POINTS)
+        train_wide = phase_train(device, WIDE_POINTS)
+        rows += phase_timing_wide(launches, pred, gt, train_wide)
+        new_paths["finetune_wide"] = train_wide["finetune"]
     for row in rows:
-        if row["name"] in ("chamfer_nn", "emd_auction", "emd_auction_stream"):
-            row["launches_new_paths"] = {path: counts[row["name"]]
-                                         for path, counts in new_paths.items()}
-        # The serving paths' counts (each asserted 0 in its phase).
         counter = next(k for k in ("emd_auction_stream", "emd_auction", "chamfer_nn", "sinkhorn")
                        if row["name"].startswith(k))
+        # K5's launches are counted apart only on the paths that record them.
+        path_counter = "emd_auction_scaled" if row["name"] == "emd_auction_scaled" else counter
+        row["launches_new_paths"] = {path: counts[path_counter]
+                                     for path, counts in new_paths.items()
+                                     if path_counter in counts}
+        # The serving paths' counts (each asserted 0 in its phase).
         row["launches_serving_path"] = {path: counts[counter]
                                         for path, counts in serving.items()}
     print(smi, flush=True)
-    emit({"kernels": rows})
+    if rows:
+        emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

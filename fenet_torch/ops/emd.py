@@ -202,8 +202,9 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
 
     x1, x2 (B,N,3) float32, contiguous, on one CUDA device, N <= 8192 ->
     (B,N) float32 squared matched distances, (B,N) int32 assignment.
-    Counts every launch in ``auction_kernel.launches`` and those of the
-    streaming entry point also in ``auction_kernel.stream_launches``.
+    Counts every launch in ``auction_kernel.launches``, those of the
+    streaming entry point also in ``auction_kernel.stream_launches`` and
+    those with eps-scaling phases (K5) in ``auction_kernel.scaled_launches``.
     """
     _build.check_clouds(x1, x2, "emd_auction")
     bsz, n = x1.shape[0], x1.shape[1]
@@ -240,11 +241,13 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
     _build.check(status, "emd_auction_stream" if stream else "emd_auction")
     auction_kernel.launches += 1
     auction_kernel.stream_launches += int(stream)
+    auction_kernel.scaled_launches += int(scale_phases > 1)
     return dist, ass
 
 
 auction_kernel.launches = 0
 auction_kernel.stream_launches = 0
+auction_kernel.scaled_launches = 0
 
 
 def root_mismatches(device: torch.device):

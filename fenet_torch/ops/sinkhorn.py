@@ -16,7 +16,10 @@ detached-plan gradient rule), so the op has no gradient.
 
 For CPU tensors the wrapper runs the plain version :func:`_potentials_plain`;
 for CUDA tensors it launches ``csrc/sinkhorn.cu`` (:func:`potentials_kernel`)
-or raises. The kernel keeps the plain version's bits of every exponent
+or raises. Above ``MAX_N`` points, where fenet's Pallas kernels decline and
+fenet runs its XLA loop, the wrapper runs the plain version on the tensors'
+own device. The choice is by shape alone, before any launch; the kernel
+wrapper itself raises above ``MAX_N``. The kernel keeps the plain version's bits of every exponent
 ``(pot_j - C_ij)/e + log_w`` (the quotient from a per-iteration reciprocal
 and two FMAs) and sums ``ex2.approx`` of them over tiles of columns with a
 running max, so it agrees with the plain version to fenet's tolerance (rtol
@@ -116,10 +119,12 @@ def sinkhorn_potentials(x: torch.Tensor, y: torch.Tensor, eps: float,
     under squared-euclidean cost; x (B, N, 3), y (B, M, 3) -> (B, N), (B, M).
 
     ``eps0`` is raised to ``eps`` if below it, so the anneal never grows.
+    Above ``MAX_N`` points the plain version runs on the tensors' device
+    (dense (B, N, M) arrays, as fenet's XLA loop holds them).
     """
     eps0 = max(eps0, eps)
     x = x.detach().float().contiguous()
     y = y.detach().float().contiguous()
-    if x.device.type == "cpu" and y.device.type == "cpu":
+    if (x.device.type == "cpu" and y.device.type == "cpu") or max(x.shape[1], y.shape[1]) > MAX_N:
         return _potentials_plain(x, y, eps, iters, eps0)
     return potentials_kernel(x, y, eps, iters, eps0)
