@@ -18,6 +18,7 @@ import torch
 
 from fenet_torch.ops.pairwise import pairwise_sqdist
 from fenet_torch.ops.sinkhorn import sinkhorn_potentials
+from fenet_torch.utils.profiling import span
 
 
 def sinkhorn_distance(x: torch.Tensor, y: torch.Tensor, blur: float = 0.01,
@@ -75,4 +76,5 @@ def sinkhorn_emd_loss(pred: torch.Tensor, gt: torch.Tensor, blur: float = 0.01,
     eps0 = max(eps0, eps)
     c = pairwise_sqdist(pred, gt)  # live: the only gradient path
     f, g = sinkhorn_potentials(pred, gt, eps, iters, eps0)  # detached
-    return plan_loss(c.detach(), c, f, g, eps)
+    with span("fenet_torch.sinkhorn.plan"):
+        return plan_loss(c.detach(), c, f, g, eps)

@@ -35,6 +35,7 @@ from fenet_torch.models.repvgg import (
     fold_repvgg_params,
 )
 from fenet_torch.parallel.mesh import copy_to_group, reduce_from_group
+from fenet_torch.utils.profiling import span
 
 # The reference's fixed 3x3 edge filter, the same for every (out, in) pair.
 _EDGE_KERNEL = np.array(
@@ -165,8 +166,10 @@ class Generator(nn.Module):
         return self._parts[1]
 
     def forward(self, images: torch.Tensor):
-        x = _nchw(images, self.fc1.weight.dtype)
-        return self._decode(self.RepVGG.forward_features(x), x)
+        with span("fenet_torch.model.backbone"):  # with the images' cast, shared by the edge
+            x = _nchw(images, self.fc1.weight.dtype)
+            feature_map = self.RepVGG.forward_features(x)
+        return self._decode(feature_map, x)
 
     def decode(self, feature_map: torch.Tensor, images: torch.Tensor):
         """The path from a backbone feature map (B, C, h, w) on, with the
@@ -176,9 +179,12 @@ class Generator(nn.Module):
 
     def _decode(self, feature_map: torch.Tensor, x: torch.Tensor):
         edge_branch, decoder = self._parts
-        feat = self.RepVGG.head(feature_map)
-        edge = edge_branch(x, self.edge_kernel)
-        return decoder(torch.cat([feat, edge], dim=1))
+        with span("fenet_torch.model.backbone"):
+            feat = self.RepVGG.head(feature_map)
+        with span("fenet_torch.model.edge"):
+            edge = edge_branch(x, self.edge_kernel)
+        with span("fenet_torch.model.decoder"):
+            return decoder(torch.cat([feat, edge], dim=1))
 
 
 def _nchw(images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -33,6 +33,15 @@ Above 8192 points, where fenet's Pallas kernel declines and fenet runs its
 XLA auction, the op runs :func:`earth_mover_distance_ref`, the same dense
 auction in plain torch on either device, and logs so once per N. The choice
 is by N alone; the kernel wrapper itself raises above 8192.
+
+While a profiler records, every path counts the auction's work, which its
+data decides: each element's row bids over all phases and iterations
+(``_auction_loop``'s ``bid_rows``) and its iterations that had a bidder. A
+call adds its bids and its longest element's iterations (the chain that
+sets a call's time, one CTA an element on the card) to its device's totals,
+on the device and with no host sync, and counts itself; :func:`auction_work`
+reads them back. Without a profiler nothing is counted: the kernel gets no
+buffer to write its counts to, and no fold is launched.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import torch
 
 from fenet_torch.ops import _build
 from fenet_torch.ops.pairwise import pairwise_sqdist, sqnorm
+from fenet_torch.utils.profiling import recording, span
 
 _NEG = -1e9  # "minus infinity" for masked maxima, kept finite as in fenet
 # N of the kernel's resident entry point: one CTA of 1024 threads, one
@@ -149,12 +159,56 @@ def _auction_loop(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
     return out + (bidders,) if trace else out
 
 
+def _element_work(bid_rows: torch.Tensor, bidders) -> torch.Tensor:
+    """Each element's work in one ``_auction_loop(..., trace=True)``: (B,
+    2) int64, its row bids and its iterations that had a bidder, over all
+    phases; what the kernel writes for it."""
+    iterations = sum((t > 0).sum(dim=0) for t in bidders)
+    return torch.stack((bid_rows, iterations), dim=1)
+
+
+def _fold_work(work: torch.Tensor) -> None:
+    """Add one call's per-element work (B, 2) to its device's totals in
+    ``auction_work.totals`` (the bids summed, the longest element's
+    iterations) and count the call in ``auction_work.calls``."""
+    device = work.device
+    if device not in auction_work.totals:
+        with torch.inference_mode(False):  # a tensor that calls outside the mode may update
+            auction_work.totals[device] = torch.zeros(2, dtype=torch.int64, device=device)
+        auction_work.calls[device] = 0
+    auction_work.totals[device].add_(torch.stack((work[:, 0].sum(), work[:, 1].max())))
+    auction_work.calls[device] += 1
+
+
+def auction_work(device) -> dict:
+    """The auction's work on ``device`` over the process's calls made while
+    a profiler recorded: ``bids``, the rows that bid, summed over each
+    call's elements, phases and iterations; ``iterations``, each call's
+    longest element's iterations that had a bidder, summed over the calls;
+    ``calls``. Reads the totals back from the device (a sync): not for the
+    hot path."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in auction_work.totals:
+        return {"bids": 0, "iterations": 0, "calls": 0}
+    bids, iterations = auction_work.totals[device].tolist()
+    return {"bids": bids, "iterations": iterations, "calls": auction_work.calls[device]}
+
+
+auction_work.totals = {}
+auction_work.calls = {}
+
+
 def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
                    scale_phases: int = 1, early_exit: bool = True,
                    scale_thresh: float = 0.0):
-    """Plain version of the auction kernel: (dist, assignment)."""
-    dist, ass, _ = _auction_loop(x1, x2, eps, iters, scale_phases, early_exit,
-                                 scale_thresh)
+    """Plain version of the auction kernel: (dist, assignment). Counts its
+    work as the kernel does, while a profiler records."""
+    dist, ass, bid_rows, bidders = _auction_loop(x1, x2, eps, iters, scale_phases, early_exit,
+                                                 scale_thresh, trace=True)
+    if recording():
+        _fold_work(_element_work(bid_rows, bidders))
     return dist, ass
 
 
@@ -171,9 +225,11 @@ def earth_mover_distance_ref(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float 
     n = xyz1.shape[1]
     step = max(1, DENSE_PAIRS // (n * n))
     parts = [_auction_loop(xyz1[i:i + step], xyz2[i:i + step], eps, iters, scale_phases,
-                           early_exit, scale_thresh)[:2]
+                           early_exit, scale_thresh, trace=True)
              for i in range(0, xyz1.shape[0], step)]
-    return torch.cat([d for d, _ in parts]), torch.cat([a for _, a in parts])
+    if recording():
+        _fold_work(torch.cat([_element_work(p[2], p[3]) for p in parts]))
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
 earth_mover_distance_ref.calls = 0
@@ -204,7 +260,9 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
     (B,N) float32 squared matched distances, (B,N) int32 assignment.
     Counts every launch in ``auction_kernel.launches``, those of the
     streaming entry point also in ``auction_kernel.stream_launches`` and
-    those with eps-scaling phases (K5) in ``auction_kernel.scaled_launches``.
+    those with eps-scaling phases (K5) in ``auction_kernel.scaled_launches``,
+    and, while a profiler records, the work the kernel counted in
+    :func:`auction_work`'s totals.
     """
     _build.check_clouds(x1, x2, "emd_auction")
     bsz, n = x1.shape[0], x1.shape[1]
@@ -216,10 +274,12 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
         raise ValueError(f"emd_auction: scale_phases {scale_phases} not in [1, {MAX_PHASES}]")
     dist = torch.empty((bsz, n), dtype=torch.float32, device=x1.device)
     ass = torch.empty((bsz, n), dtype=torch.int32, device=x1.device)
+    work = torch.empty((bsz, 2), dtype=torch.int64, device=x1.device) if recording() else None
     eps_table = (ctypes.c_float * scale_phases)(*phase_eps(eps, scale_phases))
     adaptive = scale_phases > 1 and scale_thresh > 0.0
     stream = n > RESIDENT_MAX_N
-    pointers = [x1.data_ptr(), x2.data_ptr(), dist.data_ptr(), ass.data_ptr()]
+    pointers = [x1.data_ptr(), x2.data_ptr(), dist.data_ptr(), ass.data_ptr(),
+                None if work is None else work.data_ptr()]
     if stream:
         # The per-column winner keys above SHARED_KEYS_MAX_N, cleared by the
         # kernel; below it they live in shared memory and the pointer is null.
@@ -239,6 +299,8 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
                     gate_threshold(scale_thresh, n) if adaptive else 0.0,
                     torch.cuda.current_stream().cuda_stream)
     _build.check(status, "emd_auction_stream" if stream else "emd_auction")
+    if work is not None:
+        _fold_work(work)
     auction_kernel.launches += 1
     auction_kernel.stream_launches += int(stream)
     auction_kernel.scaled_launches += int(scale_phases > 1)
@@ -272,13 +334,14 @@ class _EarthMoverDistance(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xyz1, xyz2, eps, iters, scale_phases, early_exit, scale_thresh):
         args = (xyz1, xyz2, eps, iters, scale_phases, early_exit, scale_thresh)
-        if xyz1.shape[1] > MAX_N:
-            _warn_dense_once(xyz1.shape[1])
-            dist, ass = earth_mover_distance_ref(*args)
-        elif xyz1.device.type == "cpu" and xyz2.device.type == "cpu":
-            dist, ass = _auction_plain(*args)
-        else:
-            dist, ass = auction_kernel(*args)
+        with span("fenet_torch.ops.auction"):
+            if xyz1.shape[1] > MAX_N:
+                _warn_dense_once(xyz1.shape[1])
+                dist, ass = earth_mover_distance_ref(*args)
+            elif xyz1.device.type == "cpu" and xyz2.device.type == "cpu":
+                dist, ass = _auction_plain(*args)
+            else:
+                dist, ass = auction_kernel(*args)
         ctx.mark_non_differentiable(ass)
         ctx.save_for_backward(xyz1, xyz2, ass)
         return dist, ass

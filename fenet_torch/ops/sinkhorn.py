@@ -36,6 +36,7 @@ import torch
 
 from fenet_torch.ops import _build
 from fenet_torch.ops.pairwise import pairwise_sqdist
+from fenet_torch.utils.profiling import span
 
 # Points per cloud the kernel takes: x or y with their potential staged in
 # shared memory at 20 bytes a point (160 KB at 8192).
@@ -123,8 +124,10 @@ def sinkhorn_potentials(x: torch.Tensor, y: torch.Tensor, eps: float,
     (dense (B, N, M) arrays, as fenet's XLA loop holds them).
     """
     eps0 = max(eps0, eps)
-    x = x.detach().float().contiguous()
-    y = y.detach().float().contiguous()
-    if (x.device.type == "cpu" and y.device.type == "cpu") or max(x.shape[1], y.shape[1]) > MAX_N:
-        return _potentials_plain(x, y, eps, iters, eps0)
-    return potentials_kernel(x, y, eps, iters, eps0)
+    with span("fenet_torch.ops.potentials"):
+        x = x.detach().float().contiguous()
+        y = y.detach().float().contiguous()
+        on_cpu = x.device.type == "cpu" and y.device.type == "cpu"
+        if on_cpu or max(x.shape[1], y.shape[1]) > MAX_N:
+            return _potentials_plain(x, y, eps, iters, eps0)
+        return potentials_kernel(x, y, eps, iters, eps0)

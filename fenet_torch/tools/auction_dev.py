@@ -4,7 +4,9 @@
 
 Builds ``fenet_torch/csrc/emd_auction.cu`` (label ``new``) and every
 ``--source`` (another file with the same two C entry points, such as an
-earlier commit's unpacked under ``build/``), one ``nvcc`` each, all at once,
+earlier commit's unpacked under ``build/``; since the kernel counts its work
+they take the (B, 2) work buffer after ``ass``, which a source from before
+the counter must be given by hand), one ``nvcc`` each, all at once,
 with the flags of ``fenet_torch.ops._build``, and prints each build's
 ``ptxas`` lines, and holds each build's square root against
 ``__fsqrt_rn(max(d, 0))`` on all 2^32 float bit patterns

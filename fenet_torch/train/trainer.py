@@ -52,6 +52,7 @@ from fenet_torch.parallel.mesh import Mesh, make_mesh, pmean_
 from fenet_torch.train.config import TrainConfig
 from fenet_torch.utils.average_meter import AverageMeter
 from fenet_torch.utils.device import full_fp32, resolve_device
+from fenet_torch.utils.profiling import span
 
 
 def reference_lr_schedule(base_lr: float, epoch: int) -> float:
@@ -130,11 +131,14 @@ class Trainer:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss mode's total and its parts, for a prediction (B, N, 3)."""
         cfg = self.config
-        cd = chamfer_loss(pred, points)
-        emd = self.emd(pred, points)
+        with span("fenet_torch.loss.chamfer"):
+            cd = chamfer_loss(pred, points)
+        with span("fenet_torch.loss.emd"):
+            emd = self.emd(pred, points)
         if self.loss_mode == "finetune":
-            total = (cfg.lambda_bce * self.bce(pred, points) + cfg.lambda_cd * cd
-                     + cfg.lambda_emd * emd)
+            with span("fenet_torch.loss.bce"):
+                bce = self.bce(pred, points)
+            total = cfg.lambda_bce * bce + cfg.lambda_cd * cd + cfg.lambda_emd * emd
         elif epoch > 30:
             total = cfg.lambda_emd * emd
         else:
@@ -145,18 +149,30 @@ class Trainer:
     def train_step(self, images, points, epoch: int, lr: float) -> Dict[str, torch.Tensor]:
         """One optimizer step on a batch: images (B, 128, 128, 3) uint8 or
         float with raw 0..255 values, points (B, N, 3); numpy or tensors.
-        The images are cast to float32 on the device."""
-        images = torch.as_tensor(images).to(self.device)
-        points = torch.as_tensor(points).to(self.device, torch.float32)
-        self.model.train()
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.zero_grad(set_to_none=True)
-        _, _, pred = self.model(images)
-        total, stats = self.loss(pred, points, epoch)
-        total.backward()
-        self.all_reduce_(stats)
-        self.optimizer.step()
+        The images are cast to float32 on the device.
+
+        Under a profiler each phase is a span (``fenet_torch.train.*``), on
+        this thread; autograd's engine launches the backward's kernels from
+        its own threads, so ``fenet_torch.train.backward`` holds this
+        thread's wait for them."""
+        with span("fenet_torch.train.step"):
+            with span("fenet_torch.train.inputs"):
+                images = torch.as_tensor(images).to(self.device)
+                points = torch.as_tensor(points).to(self.device, torch.float32)
+            self.model.train()
+            with span("fenet_torch.train.optimizer"):
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.zero_grad(set_to_none=True)
+            with span("fenet_torch.train.forward"):
+                _, _, pred = self.model(images)
+            with span("fenet_torch.train.loss"):
+                total, stats = self.loss(pred, points, epoch)
+            with span("fenet_torch.train.backward"):
+                total.backward()
+            self.all_reduce_(stats)
+            with span("fenet_torch.train.optimizer"):
+                self.optimizer.step()
         return stats
 
     def all_reduce_(self, stats: Dict[str, torch.Tensor]) -> None:

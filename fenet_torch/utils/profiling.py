@@ -1,8 +1,10 @@
 """Profiling and timing (counterpart of ``fenet/utils/profiling.py``).
 
 The reference times with wall-clock AverageMeters only (train.py:137-138,
-201-203). This adds a ``torch.profiler`` trace viewable in Perfetto or
-chrome://tracing, and a timer that waits for the devices each call, since a
+201-203). This holds a ``torch.profiler`` trace viewable in Perfetto or
+chrome://tracing; ``span``, the named ranges the program records on that
+trace's timeline, and ``recording``, which tells the program's counts
+whether to count; and a timer that waits for the devices each call, since a
 CUDA launch returns before its work is done and a bare host clock times the
 enqueue.
 """
@@ -12,9 +14,12 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Iterator
+from typing import Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -30,6 +35,24 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def recording() -> bool:
+    """Whether a profiler records: the program's spans and counts are on
+    only then."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A named range of the program on the profiler's timeline:
+    ``with span("fenet_torch.train.loss"): ...``. While a profiler records,
+    a ``torch.profiler.record_function`` range, on the calling thread and
+    the same clock as the device's kernels, so that each launch inside it
+    can be tied to it; otherwise a context that does nothing, at the cost
+    of one flag read."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _devices(x, found: set) -> set:
@@ -61,23 +84,3 @@ def synced_seconds(fn, *args, iters: int = 5, warmup: int = 1) -> float:
     for _ in range(iters):
         _sync(fn(*args))
     return (time.time() - t0) / iters
-
-
-class StepTimer:
-    """Rolling per-phase timings: ``timer.tick('data'); ...; timer.tick('step')``."""
-
-    def __init__(self):
-        self._last = time.time()
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    def tick(self, phase: str) -> float:
-        now = time.time()
-        dt = now - self._last
-        self._last = now
-        self.totals[phase] = self.totals.get(phase, 0.0) + dt
-        self.counts[phase] = self.counts.get(phase, 0) + 1
-        return dt
-
-    def summary(self) -> Dict[str, float]:
-        return {k: self.totals[k] / max(self.counts[k], 1) for k in self.totals}

@@ -16,7 +16,6 @@ exact) and to 1e-6 on normal ones.
 
 import logging
 import os
-import time
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +33,6 @@ from fenet.models.repvgg import REPVGG_CONFIGS as JAX_CONFIGS
 from fenet.models.repvgg import RepVGG as JaxRepVGG
 from fenet.models.repvgg import model_custom_l2 as jax_model_custom_l2
 from fenet.ops.emd import earth_mover_distance_ref as jax_emd_ref
-from fenet.utils import profiling as jax_profiling
 from fenet_torch.geometry import camera
 from fenet_torch.geometry.icp import best_fit_transform, icp
 from fenet_torch.models.convert import state_dict_from_jax
@@ -274,21 +272,6 @@ def test_synced_seconds_handles_nests_and_scalars():
     t = profiling.synced_seconds(lambda x: {"a": x + 1, "n": 3, "l": [x, (x, 2.0)]},
                                  torch.zeros(4), iters=1, warmup=0)
     assert t >= 0.0
-
-
-@pytest.mark.parametrize("timer", [profiling.StepTimer, jax_profiling.StepTimer])
-def test_step_timer_phases_and_summary(timer):
-    """The port's StepTimer behaves as fenet's on the same laps."""
-    timer = timer()
-    time.sleep(0.01)
-    dt1 = timer.tick("data")
-    time.sleep(0.02)
-    dt2 = timer.tick("step")
-    assert dt1 >= 0.01 and dt2 >= 0.02
-    timer.tick("data")
-    s = timer.summary()
-    assert set(s) == {"data", "step"} and timer.counts == {"data": 2, "step": 1}
-    np.testing.assert_allclose(s["data"], timer.totals["data"] / 2)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
