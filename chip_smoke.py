@@ -7,8 +7,8 @@ development, ``--phases`` runs a chosen set in the same order, with the
 phases whose results they take (``timing`` and ``wide``'s own eval and
 train, ``analysis`` after ``eval``, ``serve`` after ``deploy``, ``parallel``
 after ``data``, ``viz`` after ``goldens``): kernels, eval, train, timing,
-analysis, pix3d, deploy, serve, data, parallel, goldens, viz, checkpoint,
-tools, wide (the 2048-point eval, train and timing).
+plan, analysis, pix3d, deploy, serve, data, parallel, goldens, viz,
+checkpoint, tools, wide (the 2048-point eval, train and timing).
 
 Builds the hand-written CUDA kernels from ``fenet_torch/csrc`` and drives
 the port's eval path (RepVGG-A2 generator -> batched ICP -> auction EMD +
@@ -51,6 +51,16 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    auction's square root (branch-free, with a slow path for tiny and
    non-positive d) against __fsqrt_rn(max(d, 0)) on all 2^32 float bit
    patterns: no pattern may differ.
+   plan: the Sinkhorn loss's fused plan (csrc/sinkhorn_plan.cu) at the
+   2048-point train shape (PLAN_SHAPE) on K7's potentials, against
+   pairwise_sqdist + plan_loss: the loss to 1e-5 relative, the prediction's
+   gradient and, with gt requiring one (the column pass), gt's to 1e-4 of
+   the largest element; one row launch a call, a column launch only for
+   gt's gradient. The row and column kernels' device ms beside their bounds
+   (operations and exponentials; issued instructions), the fused and the
+   plain loss's ms (forward, and forward with backward), and each one's peak
+   memory above its inputs: the fused one's must stay under one (B, N, M)
+   float32 tensor.
 4. eval: evaluate_dataset over SyntheticShapeNet(n_models=6) at batch 64
    with ICP on; the kernels' launch counts must rise by 2 (chamfer) and 1
    (EMD: K3 at 1024 points, K4 at 2048) per batch. Then, as the reference,
@@ -67,7 +77,8 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    identical inputs, which must give identical bits; train_net for 2 epochs
    with validation at epoch 2, whose checkpoint must load back with
    strict=True; and (at 1024 points) one train step on the card against the
-   same step on the CPU from identical weights.
+   same step on the CPU from identical weights. The Sinkhorn mode launches
+   the fused plan once a step, the other modes never.
    Each mode also counts the gate's open elements on every step's clouds
    (eps-scaling) and the host syncs of one step (PyTorch's sync debug mode).
    finetune: Trainer(loss_mode="finetune") on the same batch from the
@@ -161,8 +172,8 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    Sinkhorn potentials above the kernel's 8192 points (SINKHORN_LARGE, the
    plain version on the card) against the CPU at rtol 1e-4 / atol 1e-5, the
    kernel wrapper raising there, and one Trainer(emd_impl="sinkhorn") step
-   at 8448 points, batch 2, full width (finite losses, K1 2): no K6/K7
-   launch; K1 and K3 on the reference's four golden pairs of clouds
+   at 8448 points, batch 2, full width (finite losses, K1 2, the fused
+   plan 1): no K6/K7 launch; K1 and K3 on the reference's four golden pairs of clouds
    (tests/goldens/metric_goldens.npz) at tests/test_reference_parity.py's
    bounds, the auction also at 3000 iterations within 0.5% above the
    optimal matching; profiling.trace over one eval step, which must write
@@ -289,6 +300,14 @@ STREAM_TRAIN_CHECK = 32
 # accurate expf) gave 4.6e-6 and 5.1e-6 on the train clouds (PERF.md); the
 # limit is the larger of twice that and 1e-3.
 SINKHORN_LOSS_REL_LIMIT = 1e-3
+# The fused plan's check: (B, N, M, Sinkhorn iterations) of the 2048-point
+# train step, and its float32 operations a pair: the cost (9), the exponent
+# (5), the row's cost sum (2) and V (three differences, three FMAs: 9), with
+# one exponential; and its issued instructions a pair (the same, the
+# accurate expf's ~10 among them, the clamp's mask and select: ~31).
+PLAN_SHAPE = (128, 2048, 2048, 300)
+PLAN_OPS_PER_PAIR = 25
+PLAN_ISSUES_PER_PAIR = 31
 # The three EMD modes of TrainConfig and the kernel each one runs.
 TRAIN_MODES = {
     "auction": ({}, "emd_auction"),
@@ -487,6 +506,14 @@ def launch_counts():
             "sinkhorn": sinkhorn.potentials_kernel.launches}
 
 
+def plan_launches() -> dict:
+    """Launches of the fused Sinkhorn plan's row and column kernels."""
+    from fenet_torch.ops import sinkhorn
+
+    return {"sinkhorn_plan": sinkhorn.plan_kernel.launches,
+            "sinkhorn_plan_columns": sinkhorn.plan_columns_kernel.launches}
+
+
 def reset_counts() -> None:
     from fenet_torch.ops import chamfer, emd, sinkhorn
 
@@ -495,6 +522,8 @@ def reset_counts() -> None:
     emd.auction_kernel.stream_launches = 0
     emd.auction_kernel.scaled_launches = 0
     sinkhorn.potentials_kernel.launches = 0
+    sinkhorn.plan_kernel.launches = 0
+    sinkhorn.plan_columns_kernel.launches = 0
 
 
 def emd_kernel_name(n: int) -> str:
@@ -766,6 +795,88 @@ def phase_kernels_stream(device) -> None:
               "N": n, "eps": 0.005, "iters": 50, "metric": m_k, "plain_metric": m_p,
               "max_abs_dist_err": float((d_k - d_p).abs().max()),
               "assignment_equal_share": float((a_k == a_p).float().mean())})
+
+
+def phase_plan(device) -> dict:
+    """The fused Sinkhorn plan at PLAN_SHAPE on K7's potentials against
+    pairwise_sqdist + plan_loss (the module docstring's ``plan``); returns
+    its numbers."""
+    import numpy as np
+    import torch
+
+    from fenet_torch.losses.sinkhorn import mean_root, plan_loss
+    from fenet_torch.ops import sinkhorn
+    from fenet_torch.ops.pairwise import pairwise_sqdist
+
+    b, n, m, iters = PLAN_SHAPE
+    eps = 1e-4  # the train loss's blur 0.01, squared
+    rng = np.random.RandomState(25)
+    x, y = (torch.tensor((rng.rand(b, k, 3) * 0.9).astype(np.float32), device=device)
+            for k in (n, m))
+    f, g = sinkhorn.potentials_kernel(x, y, eps, iters, 0.25)
+
+    def fused(xl, yl):
+        return mean_root(sinkhorn.plan_cost(xl, yl, f, g, eps))
+
+    def plain(xl, yl):
+        c = pairwise_sqdist(xl, yl)
+        return plan_loss(c.detach(), c, f, g, eps)
+
+    def run(loss_fn, gt_grad, backward=True):
+        xl, yl = x.clone().requires_grad_(True), y.clone().requires_grad_(gt_grad)
+        loss = loss_fn(xl, yl)
+        if backward:
+            loss.backward()
+        return loss.detach(), xl.grad, yl.grad
+
+    def peak_of(fn):
+        """fn's result and its peak memory above what was allocated before."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, torch.cuda.max_memory_allocated() - base
+
+    out = {"phase": "plan", "B": b, "N": n, "M": m, "sinkhorn_iters": iters, "eps": eps,
+           "inputs": "uniform clouds in [0, 0.9)^3, K7's potentials"}
+    for gt_grad in (False, True):
+        reset_counts()
+        (l_k, gx_k, gy_k), peak_k = peak_of(lambda: run(fused, gt_grad))
+        launches = plan_launches()
+        (l_p, gx_p, gy_p), peak_p = peak_of(lambda: run(plain, gt_grad))
+        errs = {"loss_rel_err": abs(float(l_k) - float(l_p)) / abs(float(l_p)),
+                "grad_x_err": float((gx_k - gx_p).abs().max() / gx_p.abs().max())}
+        if gt_grad:
+            errs["grad_gt_err"] = float((gy_k - gy_p).abs().max() / gy_p.abs().max())
+        label = "gt_grad" if gt_grad else "pred_grad"
+        out[label] = {**errs, "launches": launches, "fused_peak_bytes": peak_k,
+                      "plain_peak_bytes": peak_p}
+        want = {"sinkhorn_plan": 1, "sinkhorn_plan_columns": int(gt_grad)}
+        if (not errs["loss_rel_err"] <= 1e-5
+                or not max(v for k, v in errs.items() if k.startswith("grad")) <= 1e-4
+                or launches != want or not peak_k < b * n * m * 4):
+            raise AssertionError(f"the fused plan against the plain one ({label}): "
+                                 f"{out[label]}; launches must be {want}, the peak under "
+                                 f"B·N·M floats")
+        del gx_k, gy_k, gx_p, gy_p
+    pairs = b * n * m
+    bound, by = bound_ms(pairs * PLAN_OPS_PER_PAIR, (b * n + b * m) * 16 + b * n * 16,
+                         special=pairs)
+    u = torch.rand(b, n, device=device)
+    out.update({
+        "kernel_ms": cuda_ms(lambda: sinkhorn.plan_kernel(x, y, f, g, eps), 20, warmup=2),
+        "columns_kernel_ms": cuda_ms(lambda: sinkhorn.plan_columns_kernel(x, y, f, g, u, eps),
+                                     20, warmup=2),
+        "bound_ms": bound, "bound_by": by,
+        "issue_bound_ms": pairs * PLAN_ISSUES_PER_PAIR / ISSUE_SLOTS_PER_S * 1e3,
+        "fused_forward_ms": cuda_ms(lambda: run(fused, False, backward=False), 10),
+        "fused_forward_backward_ms": cuda_ms(lambda: run(fused, False), 10),
+        "plain_forward_ms": cuda_ms(lambda: run(plain, False, backward=False), 5),
+        "plain_forward_backward_ms": cuda_ms(lambda: run(plain, False), 5),
+    })
+    emit(out)
+    return out
 
 
 def model_name(n: int = N_POINTS) -> str:
@@ -1083,6 +1194,9 @@ def phase_train(device, n: int = N_POINTS) -> dict:
         want[emd_kernel_name(n) if kernel == "emd_auction" else kernel] = 3
         if launches != want:
             raise AssertionError(f"train ({mode}) launched {launches}, not {want}")
+        plan = plan_launches()
+        if plan != {"sinkhorn_plan": 3 if mode == "sinkhorn" else 0, "sinkhorn_plan_columns": 0}:
+            raise AssertionError(f"train ({mode}) launched the plan kernels {plan}")
         if not all(np.isfinite(v) for step in losses for v in step.values()):
             raise AssertionError(f"train ({mode}) losses are not finite: {losses}")
         if not losses[2]["total_loss"] < losses[0]["total_loss"]:
@@ -1100,7 +1214,8 @@ def phase_train(device, n: int = N_POINTS) -> dict:
             extra["gate_open_elements_per_step"] = [
                 gate_open_elements(pred, gt) for pred, gt in seen[:4]]
         emit({"phase": "train", "mode": mode, "config": overrides,
-              "model": model_name(n), "batch": TRAIN_BATCH, "launches": launches, "losses": losses,
+              "model": model_name(n), "batch": TRAIN_BATCH, "launches": launches,
+              "plan_launches": plan, "losses": losses,
               "step_ms": step_ms, "step_event_ms": step_event_ms,
               "samples_per_s": TRAIN_BATCH * 3e3 / sum(step_ms),
               "split_step_ms": split, "max_memory_allocated_bytes": peak,
@@ -2535,15 +2650,17 @@ def sinkhorn_large(device) -> dict:
     losses = {k: float(v) for k, v in trainer.train_step(images, points, TRAIN_EPOCH,
                                                          5e-4).items()}
     step_ms = (time.perf_counter() - t0) * 1e3
-    launches = launch_counts()
+    launches, plan = launch_counts(), plan_launches()
     emit({"phase": "analysis", "step": "sinkhorn_train_step_large", "model": model_name(n),
           "batch": b, "losses": losses, "step_ms": step_ms,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches})
+          "launches": launches, "plan_launches": plan})
     want = {"chamfer_nn": 2, "emd_auction": 0, "emd_auction_stream": 0, "sinkhorn": 0}
-    if launches != want or not all(np.isfinite(v) for v in losses.values()):
+    want_plan = {"sinkhorn_plan": 1, "sinkhorn_plan_columns": 0}
+    if (launches != want or plan != want_plan
+            or not all(np.isfinite(v) for v in losses.values())):
         raise AssertionError(f"the Sinkhorn train step at {n} points: {losses}, launched "
-                             f"{launches}, not {want}")
+                             f"{launches} and the plan {plan}, not {want}, {want_plan}")
     return launches
 
 
@@ -3417,8 +3534,8 @@ def phase_timing_wide(launches, pred, gt, train):
 
 # main's phases in their order; ``--phases`` picks some, and a picked phase
 # brings the phases whose results it takes (NEEDS).
-PHASES = ("kernels", "eval", "train", "timing", "analysis", "pix3d", "deploy", "serve", "data",
-          "parallel", "goldens", "viz", "checkpoint", "tools", "wide")
+PHASES = ("kernels", "plan", "eval", "train", "timing", "analysis", "pix3d", "deploy", "serve",
+          "data", "parallel", "goldens", "viz", "checkpoint", "tools", "wide")
 NEEDS = {"timing": ("eval", "train"), "analysis": ("eval",), "serve": ("deploy",),
          "parallel": ("data",), "viz": ("goldens",)}
 
@@ -3482,6 +3599,8 @@ def main(argv=None) -> int:
         phase_kernels(device)
         phase_kernels_train(device)
         phase_kernels_stream(device)
+    if "plan" in run:
+        phase_plan(device)
     if "eval" in run:
         launches, pred, gt = phase_eval(device)
     if "train" in run:

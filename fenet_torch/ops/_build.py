@@ -32,12 +32,14 @@ SOURCES = {
     "chamfer_nn": "chamfer_nn.cu",
     "emd_auction": "emd_auction.cu",
     "sinkhorn": "sinkhorn.cu",
+    "sinkhorn_plan": "sinkhorn_plan.cu",
 }
 
 # No --use_fast_math: the chamfer and auction kernels' arithmetic must be
 # IEEE float32 to agree with their plain PyTorch versions bit for bit. The
 # Sinkhorn kernel, held to fenet's tolerance rather than to bit-exactness,
-# asks for its one approximate instruction (ex2.approx) itself, by intrinsic.
+# asks for its one approximate instruction (ex2.approx) itself, by intrinsic;
+# the plan kernel takes the accurate expf, as torch.exp does.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,9 +49,13 @@ NVCC_FLAGS = [
 # library is loaded, and not on every call: {library: {symbol: (argtypes,
 # restype)}}. Pointers and the stream are c_void_p (a plain int would cut
 # them to 32 bits).
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "chamfer_nn": {"fenet_chamfer_nn_split": ([_PTR] * 5 + [_INT] * 4 + [_PTR], _INT)},
+    "sinkhorn_plan": {
+        "fenet_sinkhorn_plan_rows": ([_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 3 + [_PTR], _INT),
+        "fenet_sinkhorn_plan_cols": ([_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 3 + [_PTR], _INT),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

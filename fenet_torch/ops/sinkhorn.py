@@ -24,6 +24,14 @@ wrapper itself raises above ``MAX_N``. The kernel keeps the plain version's bits
 and two FMAs) and sums ``ex2.approx`` of them over tiles of columns with a
 running max, so it agrees with the plain version to fenet's tolerance (rtol
 1e-4, atol 1e-5), not bit for bit.
+
+``plan_cost(x, y, f, g, eps) -> (B, N)``: the Sinkhorn EMD loss's per-point
+cost ``N·sum_j pi_ij·c_ij`` from the potentials, pi detached and c =
+``pairwise_sqdist(x, y)`` live, differentiable in x and y, on CUDA tensors
+(``csrc/sinkhorn_plan.cu``: :func:`plan_kernel`, and
+:func:`plan_columns_kernel` for y's gradient). Its plain version is
+``fenet_torch.losses.sinkhorn.plan_loss`` over ``pairwise_sqdist``, which
+the loss runs for CPU tensors; the op itself launches or raises.
 """
 
 from __future__ import annotations
@@ -131,3 +139,98 @@ def sinkhorn_potentials(x: torch.Tensor, y: torch.Tensor, eps: float,
         if on_cpu or max(x.shape[1], y.shape[1]) > MAX_N:
             return _potentials_plain(x, y, eps, iters, eps0)
         return potentials_kernel(x, y, eps, iters, eps0)
+
+
+def _plan_launch(symbol: str, kernel: str, tensors, f, g, eps: float) -> None:
+    """Check the plan kernels' inputs (``tensors`` starts with x, y, then
+    f, g and the kernel's other tensors, outputs last) and launch ``symbol``
+    of ``csrc/sinkhorn_plan.cu`` on the current stream."""
+    x, y = tensors[0], tensors[1]
+    _build.check_clouds(x, y, kernel)
+    for name, pot, pts in (("f", f, x), ("g", g, y)):
+        if (pot.dtype != torch.float32 or pot.shape != pts.shape[:2]
+                or pot.device != pts.device or not pot.is_contiguous()):
+            raise ValueError(f"{kernel}: {name} is {pot.dtype} {tuple(pot.shape)} on "
+                             f"{pot.device}, needs contiguous float32 {tuple(pts.shape[:2])} "
+                             f"on {pts.device}")
+    n, m = x.shape[1], y.shape[1]
+    fn = getattr(_build.library("sinkhorn_plan"), symbol)
+    with torch.cuda.device(x.device):
+        status = fn(*(t.data_ptr() for t in tensors), x.shape[0], n, m, ctypes.c_float(eps),
+                    ctypes.c_float(math.log(n)), ctypes.c_float(math.log(m)),
+                    torch.cuda.current_stream().cuda_stream)
+    _build.check(status, kernel)
+
+
+def plan_kernel(x: torch.Tensor, y: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
+                eps: float):
+    """Launch the plan's row pass (``csrc/sinkhorn_plan.cu``; replaces no
+    Pallas kernel: fenet's plan is XLA, ``fenet/losses/sinkhorn.py:104-109``).
+
+    x (B,N,3), y (B,M,3), f (B,N), g (B,M) float32, contiguous, on one CUDA
+    device, eps > 0 -> the per-point cost (B,N) ``N·sum_j pi_ij·c_ij`` and V
+    (B,N,3) ``sum_j pi_ij·[d_ij >= 0]·(x_i - y_j)``, d the unclamped cost.
+    Counts its launches in ``plan_kernel.launches``.
+    """
+    cost = torch.empty(x.shape[:2], dtype=torch.float32, device=x.device)
+    v = torch.empty_like(x)
+    _plan_launch("fenet_sinkhorn_plan_rows", "sinkhorn_plan", (x, y, f, g, cost, v), f, g, eps)
+    plan_kernel.launches += 1
+    return cost, v
+
+
+plan_kernel.launches = 0
+
+
+def plan_columns_kernel(x: torch.Tensor, y: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
+                        u: torch.Tensor, eps: float) -> torch.Tensor:
+    """Launch the plan's column pass, for y's gradient: the inputs of
+    :func:`plan_kernel` and u (B,N), the upstream gradient of the per-point
+    cost -> W (B,M,3) ``sum_i u_i·pi_ij·[d_ij >= 0]·(x_i - y_j)``. Counts
+    its launches in ``plan_columns_kernel.launches``."""
+    if u.dtype != torch.float32 or u.shape != f.shape or u.device != x.device:
+        raise ValueError(f"sinkhorn_plan_columns: u is {u.dtype} {tuple(u.shape)} on "
+                         f"{u.device}, needs float32 {tuple(f.shape)} on {x.device}")
+    out = torch.empty_like(y)
+    _plan_launch("fenet_sinkhorn_plan_cols", "sinkhorn_plan_columns",
+                 (x, y, f, g, u.contiguous(), out), f, g, eps)
+    plan_columns_kernel.launches += 1
+    return out
+
+
+plan_columns_kernel.launches = 0
+
+
+class _PlanCost(torch.autograd.Function):
+    """The per-point cost with the detached-plan gradient: c's gradient is
+    ``N·u_i·pi_ij`` where the unclamped cost is >= 0 (autograd's clamp_min
+    rule), so x_i's is ``2N·u_i·V_i`` and y_j's ``-2N·W_j``."""
+
+    @staticmethod
+    def forward(ctx, x, y, f, g, eps):
+        cost, v = plan_kernel(x, y, f, g, eps)
+        ctx.save_for_backward(x, y, f, g, v)
+        ctx.eps = eps
+        return cost
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, y, f, g, v = ctx.saved_tensors
+        scale = 2.0 * x.shape[1]
+        grad_x = grad_y = None
+        if ctx.needs_input_grad[0]:
+            grad_x = (grad * scale)[..., None] * v
+        if ctx.needs_input_grad[1]:
+            grad_y = plan_columns_kernel(x, y, f, g, grad, ctx.eps) * -scale
+        return grad_x, grad_y, None, None, None
+
+
+def plan_cost(x: torch.Tensor, y: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """The Sinkhorn EMD loss's per-point cost (B, N), ``N·sum_j pi_ij·c_ij``
+    with ``pi = exp((f_i + g_j - c_ij)/eps - log N - log M)`` detached and
+    c = ``pairwise_sqdist(x, y)``, on CUDA tensors; differentiable in x (and
+    y, by a second kernel launched only when y needs its gradient). No
+    tensor of N·M elements is made."""
+    return _PlanCost.apply(x.contiguous(), y.contiguous(), f.detach().contiguous(),
+                           g.detach().contiguous(), eps)
