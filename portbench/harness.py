@@ -4,17 +4,21 @@ the compared numbers, and the result line.
 A cell is its entry in ``BENCHMARK.json`` (its configuration, traffic, chips
 and why it exists) and ``workloads/<cell>.json`` (its traffic kind, the
 kind's parameters and the limits of its compared numbers); its
-configuration is ``configs/<config>.json``; its traffic kind is
-``traffic/<kind>.py``, which exposes ``setup``, ``window``, ``check`` and
-``end_to_end``; a per-layer metric is ``metrics/<metric>.py``, which
-exposes ``read``. Which metrics a cell reports is ``BENCHMARK.json``'s: its
-end-to-end metrics with --trace 0, its per-layer metrics with --trace 1.
-``BENCHMARK.json`` sits beside the benchmark's folder.
+configuration is ``configs/<config>.json``, whose ``reference`` key names
+its plain reference ``reference/<name>.py`` and its operation count
+``counts/<name>.py``, each checked at load against the contract in its
+folder's ``__init__.py``; its traffic kind is ``traffic/<kind>.py``, which
+exposes ``setup``, ``window``, ``check`` and ``end_to_end``; a per-layer
+metric is ``metrics/<metric>.py``, which exposes ``read``. Which metrics a
+cell reports is ``BENCHMARK.json``'s: its end-to-end metrics with --trace 0,
+its per-layer metrics with --trace 1. ``BENCHMARK.json`` sits beside the
+benchmark's folder.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -23,6 +27,9 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from portbench.counts import CONTRACT as COUNT_CONTRACT
+from portbench.reference import CONTRACT as REFERENCE_CONTRACT
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -43,15 +50,23 @@ def named_file(folder: str, name: str, suffix: str, base: Path = HERE) -> Path:
         raise ValueError(f"{name!r} is not a name of 1-64 letters, digits, '_', '.', '-'")
     path = base / folder / f"{name}{suffix}"
     if not path.is_file():
-        raise FileNotFoundError(f"no {folder[:-1]} named {name!r} ({path})")
+        raise FileNotFoundError(f"no {folder}/{name}{suffix} for the name {name!r} ({path})")
     return path
 
 
+_LOADED: Dict[Path, object] = {}
+
+
 def load_module(path: Path):
-    spec = importlib.util.spec_from_file_location(f"portbench_{path.parent.name}_{path.stem}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    """The module of the file at ``path``, run once a process, as an import
+    is: every caller of one file gets the same module."""
+    if path not in _LOADED:
+        spec = importlib.util.spec_from_file_location(
+            f"portbench_{path.parent.name}_{path.stem}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _LOADED[path] = module
+    return _LOADED[path]
 
 
 def load_cell(name: str, base: Path = HERE) -> dict:
@@ -64,7 +79,40 @@ def load_cell(name: str, base: Path = HERE) -> dict:
 
 
 def load_config(name: str, base: Path = HERE) -> dict:
-    return {"name": name, **load_json(named_file("configs", name, ".json", base))}
+    """``configs/<name>.json``, refused unless its ``reference`` key names a
+    reference and a count that keep their contracts."""
+    path = named_file("configs", name, ".json", base)
+    config = {"name": name, **load_json(path)}
+    if "reference" not in config:
+        raise ValueError(f"{path} has no 'reference' key: the name of its "
+                         "reference/<name>.py and counts/<name>.py")
+    reference_module(config, base)
+    count_module(config, base)
+    return config
+
+
+def _kept(folder: str, contract: dict, config: dict, base: Path):
+    """``<folder>/<config's reference>.py``, refused unless it exposes every
+    function of ``contract`` and each takes the arguments listed there."""
+    path = named_file(folder, config["reference"], ".py", base)
+    module = load_module(path)
+    for fn, (args, keywords) in contract.items():
+        try:
+            inspect.signature(getattr(module, fn)).bind(*args, **dict.fromkeys(keywords))
+        except (AttributeError, TypeError, ValueError) as err:
+            raise ValueError(f"{path} breaks the contract of {folder}/: {fn}"
+                             f"({', '.join(args + keywords)}): {err}") from None
+    return module
+
+
+def reference_module(config: dict, base: Path = HERE):
+    """The plain reference that ``config`` names: ``reference/<name>.py``."""
+    return _kept("reference", REFERENCE_CONTRACT, config, base)
+
+
+def count_module(config: dict, base: Path = HERE):
+    """The operation count that ``config`` names: ``counts/<name>.py``."""
+    return _kept("counts", COUNT_CONTRACT, config, base)
 
 
 def traffic(kind: str, base: Path = HERE):
@@ -136,6 +184,16 @@ class Context:
     @property
     def limits(self) -> dict:
         return self.cell["limits"]
+
+    @property
+    def reference(self):
+        """The configuration's plain reference module."""
+        return reference_module(self.config, self.base)
+
+    @property
+    def counts(self):
+        """The configuration's operation count module."""
+        return count_module(self.config, self.base)
 
     @property
     def tmp(self) -> str:

@@ -1,12 +1,11 @@
-"""mfu.train (layer Step): the generator's forward and backward FLOPs a
-sample, from the configuration's shapes, times the traced window's samples
-a second, over the card's float32 peak (TF32 is off), in %."""
-
-from portbench.counts.generator import train_flops
+"""mfu.train (layer Step): the model's forward and backward FLOPs a sample,
+by the configuration's count (``counts/<reference>.py``), times the traced
+window's samples a second, over the card's float32 peak (TF32 is off), in
+%."""
 
 
 def read(ctx, win):
     if win.trace is None or not win.work:
         return None
     rate = win.work / win.trace.window_s
-    return 100.0 * train_flops(ctx.config) * rate / ctx.peaks["float32_flops_per_s"]
+    return 100.0 * ctx.counts.train_flops(ctx.config) * rate / ctx.peaks["float32_flops_per_s"]

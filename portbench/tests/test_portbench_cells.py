@@ -78,13 +78,15 @@ def test_a_program_that_computes_in_tf32_is_caught(tmp_path, monkeypatch):
     every TF32 switch off, and the program's switches are left as it set
     them."""
     from fenet_torch.train import trainer
-    from portbench.reference import generator as ref
+    from portbench import harness
     from portbench.reference.precision import tf32_switches
 
     def tf32():
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
 
+    base, _ = tiny.layout(tmp_path)
+    ref = harness.reference_module(harness.load_config("tiny", base), base)  # the run's own
     seen = []
     forward = ref.forward
 
@@ -97,7 +99,7 @@ def test_a_program_that_computes_in_tf32_is_caught(tmp_path, monkeypatch):
     monkeypatch.setattr(trainer, "full_fp32", tf32)
     monkeypatch.setattr(ref, "forward", watched)
     try:
-        result, _ = tiny.run(tmp_path, "tiny_train")
+        result, _ = tiny.run(tmp_path, "tiny_train", base=base)
         after = sum(tf32_switches().values())
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before[:2]

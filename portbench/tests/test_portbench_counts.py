@@ -14,7 +14,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from portbench.counts import generator as counts  # noqa: E402
+from portbench import harness  # noqa: E402
 from portbench.counts import sinkhorn  # noqa: E402
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
@@ -26,7 +26,8 @@ def test_generator_flops_match_the_flop_counter(name):
 
     from fenet_torch.models.generator import Generator
 
-    cfg = json.loads((CONFIGS / f"{name}.json").read_text())
+    cfg = harness.load_config(name)
+    counts = harness.count_module(cfg)
     arch = dict(num_points=cfg["num_points"], backbone=cfg["backbone"],
                 fine_width=cfg["fine_width"], mid_width=cfg["mid_width"])
     with torch.device("meta"):
@@ -60,7 +61,7 @@ def test_the_sinkhorn_roofline_reads_the_same_however_a_solve_is_split(launches)
     """The share counts one solve a step from the traffic and takes the
     device time of everything launched inside the potentials' call: a
     solve split into more launches of the same total time reads the same."""
-    from portbench import harness, tracing
+    from portbench import tracing
 
     metric = harness.reader("sinkhorn_roofline")
     steps, solve_us = 4, 190_000.0

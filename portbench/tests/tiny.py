@@ -7,13 +7,14 @@ from __future__ import annotations
 import json
 import shutil
 from pathlib import Path
+from typing import Optional
 
 HERE = Path(__file__).resolve().parent.parent  # portbench/
 ROOT = HERE.parent
 
 TINY_CONFIG = {
-    "source": "test fixture", "backbone": "RepVGG-TEST", "num_blocks": [1, 1, 1, 1],
-    "width_multiplier": [0.25, 0.25, 0.25, 0.25], "num_classes": 1000,
+    "source": "test fixture", "reference": "generator", "backbone": "RepVGG-TEST",
+    "num_blocks": [1, 1, 1, 1], "width_multiplier": [0.25, 0.25, 0.25, 0.25], "num_classes": 1000,
     "edge_channels": [16, 3], "image_hw": 128, "num_points": 256, "fine_width": 32,
     "mid_width": 16, "assumed": {"head_scale": 0.03},
 }
@@ -90,14 +91,16 @@ def layout(tmp: Path) -> tuple:
 
 
 def run(tmp: Path, cell: str, trace: bool = False, seed: int = 2 ** 31 + 7,
-        seconds: float = 0.5):
-    """One CPU run of a tiny cell: (result line, checks)."""
+        seconds: float = 0.5, base: Optional[Path] = None):
+    """One CPU run of a tiny cell: (result line, checks). ``base`` is a
+    layout already made under ``tmp``; without it, one is made."""
     import time
 
     import torch
 
     from portbench import harness
 
-    base, _ = layout(tmp)
+    if base is None:
+        base, _ = layout(tmp)
     return harness.run_cell(cell, seed, seconds, trace, torch.device("cpu"), time.time(),
                             base=base)

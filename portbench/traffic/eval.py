@@ -26,7 +26,6 @@ from torch.autograd.profiler import record_function
 
 from portbench import inputs, spans, tracing
 from portbench.harness import Check, Window
-from portbench.reference import generator as ref
 from portbench.reference import icp as ref_icp
 from portbench.reference import losses as ref_losses
 from portbench.reference.precision import Operands, exact_float32, tf32_switches
@@ -42,8 +41,8 @@ def setup(ctx) -> dict:
     pts = inputs.blob_clouds(data, count * b, cfg["num_points"], dev).cpu().numpy()
     pool = [(imgs[i * b:(i + 1) * b], pts[i * b:(i + 1) * b])
             for i in inputs.permutation(ctx.seed, count).tolist()]
-    state0 = ref.init(cfg, inputs.stream_seed(data, inputs.WEIGHTS), dev,
-                      head_scale=cfg["assumed"]["head_scale"])
+    state0 = ctx.reference.init(cfg, inputs.stream_seed(data, inputs.WEIGHTS), dev,
+                                head_scale=cfg["assumed"]["head_scale"])
     with torch.device(dev):
         gen = Generator(num_points=cfg["num_points"], backbone=cfg["backbone"],
                         fine_width=cfg["fine_width"], mid_width=cfg["mid_width"])
@@ -109,7 +108,7 @@ def reference_batch(ctx, state0: dict, images, gt, ops: Operands = Operands()):
     images = torch.as_tensor(images, device=dev)
     gt = torch.as_tensor(gt, device=dev, dtype=torch.float32)
     with torch.no_grad():
-        pred = ref.forward(state0, images, ctx.config, False, ops)[2]
+        pred = ctx.reference.forward(state0, images, ctx.config, False, ops)[2]
         aligned = ref_icp.align(pred, gt, p["icp_iterations"], p["icp_tolerance"],
                                 p["icp_rel_tolerance"], p["icp_patience"], ops)
         ass = ref_losses.auction(aligned, gt, p["emd_eps"], p["emd_iters"], ops)

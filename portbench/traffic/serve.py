@@ -26,13 +26,13 @@ import torch
 
 from portbench import inputs, tracing
 from portbench.harness import HERE, Check, Window
-from portbench.reference import generator as ref
 from portbench.reference.precision import Operands, exact_float32
 
 
 def weights(ctx) -> dict:
-    return ref.init(ctx.config, inputs.stream_seed(ctx.seed, inputs.WEIGHTS), ctx.device,
-                    head_scale=ctx.config["assumed"]["head_scale"], random_bn=True)
+    return ctx.reference.init(ctx.config, inputs.stream_seed(ctx.seed, inputs.WEIGHTS),
+                              ctx.device, head_scale=ctx.config["assumed"]["head_scale"],
+                              random_bn=True)
 
 
 def write_fold(ctx, state0: dict) -> str:
@@ -146,6 +146,7 @@ def reference_clouds(ctx, state0: dict, requests, ops: Operands = Operands()) ->
     float32 fold."""
     imgs = inputs.images(ctx.seed, ctx.params["images"], ctx.config["image_hw"], "cpu")
     pick = imgs[torch.as_tensor(np.asarray(requests) % len(imgs))].to(ctx.device)
+    ref = ctx.reference
     folded = ref.fold(state0, ctx.config)
     return torch.cat([ref.deploy_forward(folded, pick[i:i + 32], ctx.config, ops)
                       for i in range(0, len(pick), 32)])

@@ -32,7 +32,6 @@ from torch.autograd.profiler import record_function
 
 from portbench import inputs, spans, tracing
 from portbench.harness import Check, Window
-from portbench.reference import generator as ref
 from portbench.reference import losses as ref_losses
 from portbench.reference.adam import Adam
 from portbench.reference.precision import Operands, exact_float32, tf32_switches
@@ -72,7 +71,7 @@ def setup(ctx) -> dict:
 
     cfg, p = ctx.config, ctx.params
     pool = _pool(ctx)
-    state0 = ref.init(cfg, inputs.stream_seed(ctx.seed, inputs.WEIGHTS), ctx.device)
+    state0 = ctx.reference.init(cfg, inputs.stream_seed(ctx.seed, inputs.WEIGHTS), ctx.device)
     with torch.device(ctx.device):
         gen = Generator(num_points=cfg["num_points"], backbone=cfg["backbone"],
                         fine_width=cfg["fine_width"], mid_width=cfg["mid_width"])
@@ -157,7 +156,7 @@ def reference_run(ctx, state0: dict, batches, ops: Operands = Operands(), half: 
     """The reference's first steps from ``state0`` over ``batches``:
     {"losses", "grad1", "change"} as the program's. ``half`` takes each
     loss over the first half of the batch alone (a fault to read)."""
-    cfg, p, dev = ctx.config, ctx.params, ctx.device
+    cfg, p, dev, ref = ctx.config, ctx.params, ctx.device, ctx.reference
     names = [n for n, _, kind, _ in ref.spec(cfg) if kind in ("weight", "bias", "bn_weight",
                                                                "bn_bias")]
     params = {n: state0[n].detach().clone().requires_grad_(True) for n in names}
