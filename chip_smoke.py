@@ -8,7 +8,7 @@ phases whose results they take (``timing`` and ``wide``'s own eval and
 train, ``analysis`` after ``eval``, ``serve`` after ``deploy``, ``parallel``
 after ``data``, ``viz`` after ``goldens``): kernels, eval, train, timing,
 plan, analysis, pix3d, deploy, serve, data, parallel, goldens, viz,
-checkpoint, tools, wide (the 2048-point eval, train and timing).
+checkpoint, tools, wide (the 2048-point eval, train and timing), d2se.
 
 Builds the hand-written CUDA kernels from ``fenet_torch/csrc`` and drives
 the port's eval path (RepVGG-A2 generator -> batched ICP -> auction EMD +
@@ -217,6 +217,12 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    holding, each arm's kernel launched (K3 in the strict, adaptive and
    auction arms, K5 in the adaptive one, K6 in the Sinkhorn one), both arms
    of a tool at the same step-0 chamfer loss (rtol 1e-6).
+16. d2se: the generator on RepVGG-D2se (48 blocks, each with a
+   squeeze-and-excite gate) at 1024 points, one train step at batch 8
+   after a warm-up step: by CUDA events with no profiler, the gates'
+   counter (``repvgg.se_work``) unmoved; under a profiler, 48 gate
+   forwards and 48 backwards counted, their device ms (positive) beside
+   the step's, finite losses.
 
 The line before the last is one JSON object with every kernel's numbers
 (each also with its launches in the finetune, finetune_net, pix3d, data,
@@ -274,6 +280,11 @@ BATCH, N_POINTS = 64, 1024
 # The second point count the reference's --num_points offers.
 WIDE_POINTS = 2048
 MODEL = dict(backbone="RepVGG-A2", fine_width=512, mid_width=128)
+# The d2se phase: the generator of configuration d2se_1024 (portbench) at a
+# batch that keeps the phase short.
+D2SE_MODEL = dict(MODEL, backbone="RepVGG-D2se")
+D2SE_BATCH = 8
+D2SE_GATES = 48  # one squeeze-and-excite gate a block, stage 0 included
 TRAIN_BATCH = 128
 TRAIN_EPOCH = 1
 # The finetune CLI's learning rate.
@@ -876,6 +887,67 @@ def phase_plan(device) -> dict:
         "plain_forward_backward_ms": cuda_ms(lambda: run(plain, False), 5),
     })
     emit(out)
+    return out
+
+
+def phase_d2se(device) -> dict:
+    """One RepVGG-D2se train step on the card (``D2SE_MODEL`` at 1024
+    points, batch ``D2SE_BATCH``, from the unscaled init) after a warm-up
+    step: timed by CUDA events with no profiler, when the gates must count
+    nothing, then under a profiler, when the gates' counter must read each
+    of the 48 gates' forward and backward once and a positive device time;
+    their ms beside the step's."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fenet_torch.models.generator import Generator, init_random_
+    from fenet_torch.models.repvgg import se_work
+    from fenet_torch.train.config import TrainConfig
+    from fenet_torch.train.trainer import Trainer
+
+    with torch.device(device):
+        gen = Generator(num_points=N_POINTS, **D2SE_MODEL)
+    init_random_(gen, torch.Generator(device=device).manual_seed(0))
+    trainer = Trainer(gen, TrainConfig(batch_size=D2SE_BATCH, num_points=N_POINTS,
+                                       **D2SE_MODEL), device=device)
+    rng = np.random.RandomState(22)
+    images = torch.tensor((rng.rand(D2SE_BATCH, 128, 128, 3) * 255).astype(np.uint8),
+                          device=device)
+    points = torch.tensor((rng.rand(D2SE_BATCH, N_POINTS, 3) * 0.9).astype(np.float32),
+                          device=device)
+
+    def step():
+        return trainer.train_step(images, points, TRAIN_EPOCH, 5e-4)
+
+    step()  # warm-up: cuDNN plans
+    before = se_work(device)
+    step_ms = cuda_ms(step, 1, warmup=0)
+    if se_work(device) != before:
+        raise AssertionError(f"d2se: the gates counted with no profiler: {before} -> "
+                             f"{se_work(device)}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        start.record()
+        stats = step()
+        end.record()
+        torch.cuda.synchronize()
+    after = se_work(device)
+    gates = {k: after[k] - before[k] for k in after}
+    profiled_ms = start.elapsed_time(end)
+    out = {"phase": "d2se", "model": f"Generator({D2SE_MODEL['backbone']}, num_points="
+                                     f"{N_POINTS})", "batch": D2SE_BATCH,
+           "step_ms": step_ms, "profiled_step_ms": profiled_ms,
+           "gate_calls": gates["calls"], "gate_backward_calls": gates["backward_calls"],
+           "gate_ms": gates["ms"], "gate_share_of_profiled_step": gates["ms"] / profiled_ms,
+           "losses": {k: float(v) for k, v in stats.items()},
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+    if (gates["calls"], gates["backward_calls"]) != (D2SE_GATES, D2SE_GATES) \
+            or not gates["ms"] > 0 or not all(np.isfinite(v) for v in out["losses"].values()):
+        raise AssertionError(f"d2se: one profiled step must count {D2SE_GATES} gate forwards "
+                             f"and backwards, a positive time and finite losses: {out}")
     return out
 
 
@@ -3535,7 +3607,7 @@ def phase_timing_wide(launches, pred, gt, train):
 # main's phases in their order; ``--phases`` picks some, and a picked phase
 # brings the phases whose results it takes (NEEDS).
 PHASES = ("kernels", "plan", "eval", "train", "timing", "analysis", "pix3d", "deploy", "serve",
-          "data", "parallel", "goldens", "viz", "checkpoint", "tools", "wide")
+          "data", "parallel", "goldens", "viz", "checkpoint", "tools", "wide", "d2se")
 NEEDS = {"timing": ("eval", "train"), "analysis": ("eval",), "serve": ("deploy",),
          "parallel": ("data",), "viz": ("goldens",)}
 
@@ -3642,6 +3714,8 @@ def main(argv=None) -> int:
         train_wide = phase_train(device, WIDE_POINTS)
         rows += phase_timing_wide(launches, pred, gt, train_wide)
         new_paths["finetune_wide"] = train_wide["finetune"]
+    if "d2se" in run:
+        phase_d2se(device)
     for row in rows:
         counter = next(k for k in ("emd_auction_stream", "emd_auction", "chamfer_nn", "sinkhorn")
                        if row["name"].startswith(k))

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fenet_torch.parallel.mesh import all_reduce_sum
+from fenet_torch.utils.profiling import recording, span
 
 _BN_EPS = 1e-5  # torch BatchNorm2d default, as in fenet
 _BN_MOMENTUM = 0.1  # torch's convention for flax's momentum 0.9
@@ -92,7 +93,13 @@ def global_batch_stats(x: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tens
 
 
 class SEBlock(nn.Module):
-    """Squeeze-and-excite gate."""
+    """Squeeze-and-excite gate: x (B, C, h, w) scaled channel by channel by
+    sigmoid(up(relu(down(mean over h, w of x)))).
+
+    While a profiler records (:func:`recording`) each call is a
+    ``fenet_torch.model.se`` span and is counted in :func:`se_work`;
+    otherwise it runs the gate's operations alone: no span, hook or event.
+    """
 
     def __init__(self, channels: int, internal: int):
         super().__init__()
@@ -100,9 +107,95 @@ class SEBlock(nn.Module):
         self.up = nn.Linear(internal, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not recording():
+            return self._gate(x)
+        with span("fenet_torch.model.se"):
+            return _counted(self._gate, x)
+
+    def _gate(self, x: torch.Tensor) -> torch.Tensor:
         w = x.mean(dim=(2, 3))
         w = torch.sigmoid(self.up(torch.relu(self.down(w))))
         return x * w[:, :, None, None]
+
+
+class _GateWork:
+    """One device's gate count: calls, backward calls, the device ms read so
+    far and the CUDA event pairs not yet read."""
+
+    def __init__(self):
+        self.calls = self.backward_calls = 0
+        self.ms = 0.0
+        self.pending: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
+
+    def add(self, start, end) -> None:
+        if start is not None:
+            self.pending.append((start, end))
+
+
+def _mark(device: torch.device):
+    """A timing event recorded now on ``device``'s current stream; None off
+    CUDA."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _counted(gate, x: torch.Tensor) -> torch.Tensor:
+    """``gate(x)`` counted in :func:`se_work`: its forward between two events
+    around its launches; where it has a backward, one hook on the output
+    that records an event as the output's gradient arrives, and one on the
+    input that records the closing event once the input's gradient is
+    whole (autograd runs the gate's nodes between the two, on their
+    stream)."""
+    work = se_work.totals.setdefault(x.device, _GateWork())
+    start = _mark(x.device)
+    out = gate(x)
+    work.add(start, _mark(x.device))
+    work.calls += 1
+    if out.requires_grad and x.requires_grad:
+        opened = []
+
+        def begin(grad):
+            opened.append(_mark(grad.device))
+
+        def end(grad):
+            work.backward_calls += 1
+            work.add(opened.pop(), _mark(grad.device))
+
+        out.register_hook(begin)
+        x.register_hook(end)
+    return out
+
+
+def se_work(device) -> dict:
+    """The squeeze-and-excite gates' work on ``device`` over the process's
+    calls made while a profiler recorded: ``calls`` (forwards),
+    ``backward_calls`` and ``ms``, the device milliseconds of them all.
+
+    Each forward is timed by CUDA events recorded on its stream before and
+    after its launches, each backward by events from the gate's output
+    gradient to its input gradient; the time between a pair includes any
+    idle time of the stream between the gate's kernels (the host launching
+    late), and in the backward autograd's own steps between the gate's
+    nodes. On the CPU the calls are counted and ``ms`` is 0. The events
+    stay on the host until this reader synchronises the device once and
+    sums them: not for the hot path."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    work = se_work.totals.get(device)
+    if work is None:
+        return {"calls": 0, "backward_calls": 0, "ms": 0.0}
+    if work.pending:
+        torch.cuda.synchronize(device)
+        work.ms += sum(start.elapsed_time(end) for start, end in work.pending)
+        work.pending.clear()
+    return {"calls": work.calls, "backward_calls": work.backward_calls, "ms": work.ms}
+
+
+se_work.totals = {}
 
 
 def _conv_bn(cin: int, cout: int, kernel: int, stride: int, padding: int,
