@@ -8,7 +8,8 @@ phases whose results they take (``timing`` and ``wide``'s own eval and
 train, ``analysis`` after ``eval``, ``serve`` after ``deploy``, ``parallel``
 after ``data``, ``viz`` after ``goldens``): kernels, eval, train, timing,
 plan, analysis, pix3d, deploy, serve, data, parallel, goldens, viz,
-checkpoint, tools, wide (the 2048-point eval, train and timing), d2se.
+checkpoint, tools, wide (the 2048-point eval, train and timing), d2se,
+adam.
 
 Builds the hand-written CUDA kernels from ``fenet_torch/csrc`` and drives
 the port's eval path (RepVGG-A2 generator -> batched ICP -> auction EMD +
@@ -69,7 +70,8 @@ prints one JSON line; any failure raises, and the script exits non-zero.
 5. train: Trainer.train_step at batch 128 over SyntheticShapeNet(variety=
    True) in each EMD mode (auction, eps-scaling auction, Sinkhorn): one
    warm-up step, then three steps on one repeated batch with the counts set
-   to 0: 2 chamfer launches and 1 EMD launch per step, finite losses, the
+   to 0: 2 chamfer launches, 1 EMD launch and 1 launch of the Adam pass
+   over every parameter element with a gradient per step, finite losses, the
    total falling from step 1 to step 3; each step's ms on the host clock and
    between CUDA events around it (the device's timeline, its idle gaps
    included); the step's ms split into forward,
@@ -222,7 +224,16 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    after a warm-up step: by CUDA events with no profiler, the gates'
    counter (``repvgg.se_work``) unmoved; under a profiler, 48 gate
    forwards and 48 backwards counted, their device ms (positive) beside
-   the step's, finite losses.
+   the step's, finite losses; the Adam pass one launch a step over every
+   parameter element with a gradient.
+17. adam: the Adam pass (csrc/adam.cu) on A2's and D2se's parameter sets
+   (seeded values and gradients): three steps against torch's foreach Adam
+   on copies (the moments within 1 ulp, the parameters within 4 ulp; the
+   elements that differ counted), one launch a step over every element;
+   the device ms a step of the pass, of torch's Adam(fused=True)
+   (library_ms), of foreach Adam (foreach_ms) and of the plain version
+   beside the 28-bytes-a-parameter bound, each one's host ms a call, and
+   the pass's registers and spills.
 
 The line before the last is one JSON object with every kernel's numbers
 (each also with its launches in the finetune, finetune_net, pix3d, data,
@@ -285,6 +296,15 @@ MODEL = dict(backbone="RepVGG-A2", fine_width=512, mid_width=128)
 D2SE_MODEL = dict(MODEL, backbone="RepVGG-D2se")
 D2SE_BATCH = 8
 D2SE_GATES = 48  # one squeeze-and-excite gate a block, stage 0 included
+# The adam phase: the parameter sets of the train cells' generators at 1024
+# points; the bytes one Adam pass must move a parameter (p, g, m, v read; p,
+# m, v written); the steps held against torch's foreach Adam; the GPU cycles
+# the device sleeps before a timed run while the host enqueues it (~1 s at
+# 1.98 GHz), so that the events hold device time alone.
+ADAM_SETS = {"a2": MODEL, "d2se": D2SE_MODEL}
+ADAM_BYTES_PER_PARAM = 28
+ADAM_STEPS = 3
+ADAM_HEAD_START_CYCLES = 2_000_000_000
 TRAIN_BATCH = 128
 TRAIN_EPOCH = 1
 # The finetune CLI's learning rate.
@@ -526,8 +546,10 @@ def plan_launches() -> dict:
 
 
 def reset_counts() -> None:
-    from fenet_torch.ops import chamfer, emd, sinkhorn
+    from fenet_torch.ops import adam, chamfer, emd, sinkhorn
 
+    adam.adam_kernel.launches = 0
+    adam.adam_kernel.elements = 0
     chamfer.nn_kernel.launches = 0
     emd.auction_kernel.launches = 0
     emd.auction_kernel.stream_launches = 0
@@ -535,6 +557,24 @@ def reset_counts() -> None:
     sinkhorn.potentials_kernel.launches = 0
     sinkhorn.plan_kernel.launches = 0
     sinkhorn.plan_columns_kernel.launches = 0
+
+
+def adam_counts(trainer, steps: int, what: str) -> dict:
+    """The Adam pass's launches since the last reset_counts() and the
+    elements its last step updated, held to ``steps`` train steps of
+    ``trainer``: one launch a step for each MAX_TENSORS parameters that
+    have a gradient, and every element of those parameters."""
+    from fenet_torch.ops import adam
+
+    with_grad = [p for group in trainer.optimizer.param_groups for p in group["params"]
+                 if p.grad is not None]
+    want = {"launches": steps * -(-len(with_grad) // adam.MAX_TENSORS),
+            "elements": sum(p.numel() for p in with_grad)}
+    got = {"launches": adam.adam_kernel.launches, "elements": adam.adam_kernel.elements}
+    if got != want:
+        raise AssertionError(f"{what}: the Adam pass counted {got} over {steps} steps, "
+                             f"not {want}")
+    return got
 
 
 def emd_kernel_name(n: int) -> str:
@@ -896,7 +936,8 @@ def phase_d2se(device) -> dict:
     step: timed by CUDA events with no profiler, when the gates must count
     nothing, then under a profiler, when the gates' counter must read each
     of the 48 gates' forward and backward once and a positive device time;
-    their ms beside the step's."""
+    their ms beside the step's; the Adam pass one launch a step over every
+    parameter element with a gradient."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -921,6 +962,7 @@ def phase_d2se(device) -> dict:
         return trainer.train_step(images, points, TRAIN_EPOCH, 5e-4)
 
     step()  # warm-up: cuDNN plans
+    reset_counts()
     before = se_work(device)
     step_ms = cuda_ms(step, 1, warmup=0)
     if se_work(device) != before:
@@ -936,18 +978,131 @@ def phase_d2se(device) -> dict:
     after = se_work(device)
     gates = {k: after[k] - before[k] for k in after}
     profiled_ms = start.elapsed_time(end)
+    adam_launches = adam_counts(trainer, 2, "d2se")
     out = {"phase": "d2se", "model": f"Generator({D2SE_MODEL['backbone']}, num_points="
                                      f"{N_POINTS})", "batch": D2SE_BATCH,
            "step_ms": step_ms, "profiled_step_ms": profiled_ms,
            "gate_calls": gates["calls"], "gate_backward_calls": gates["backward_calls"],
            "gate_ms": gates["ms"], "gate_share_of_profiled_step": gates["ms"] / profiled_ms,
            "losses": {k: float(v) for k, v in stats.items()},
+           "adam_launches": adam_launches,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     emit(out)
     if (gates["calls"], gates["backward_calls"]) != (D2SE_GATES, D2SE_GATES) \
             or not gates["ms"] > 0 or not all(np.isfinite(v) for v in out["losses"].values()):
         raise AssertionError(f"d2se: one profiled step must count {D2SE_GATES} gate forwards "
                              f"and backwards, a positive time and finite losses: {out}")
+    return out
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``reps`` calls, by
+    CUDA events, after two warm-up calls: the device sleeps first while the
+    host enqueues every call, so host time between launches is not counted."""
+    import torch
+
+    fn()
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(ADAM_HEAD_START_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_ulps(got, want) -> float:
+    """The largest elementwise gap in units of the last place of the larger
+    of the two values."""
+    import torch
+
+    tiny, eps = torch.finfo(torch.float32).tiny, torch.finfo(torch.float32).eps
+    big = torch.maximum(got.abs(), want.abs()).clamp_min(tiny)
+    return float(((got - want).abs() / (eps * 2.0 ** torch.floor(torch.log2(big)))).max())
+
+
+def phase_adam(device, reports: dict) -> dict:
+    """The Adam pass (``csrc/adam.cu`` through ``ops/adam.Adam``) on each
+    of ADAM_SETS' parameter sets, seeded normal values and gradients:
+    ADAM_STEPS steps against ``torch.optim.Adam(foreach=True)`` on copies
+    (the moments within 1 ulp, the parameters within 4 ulp of their
+    largest; the elements that differ at all counted), one launch a step
+    and every element counted; then the device ms a step of the pass, of
+    torch's one-pass ``Adam(fused=True)`` (``library_ms``), of foreach Adam
+    (``foreach_ms``) and of the plain version beside the
+    28-bytes-a-parameter bound, and each one's host ms a call. With the
+    pass's ptxas line (registers, spills)."""
+    import torch
+
+    from fenet_torch.models.generator import Generator
+    from fenet_torch.ops import adam
+
+    hyper = dict(lr=5e-4, weight_decay=1e-4)
+    out = {"phase": "adam", "ptxas": [ln.strip() for ln in reports.get("adam", "").splitlines()
+                                      if "Used" in ln or "spill" in ln]}
+    for name, model in ADAM_SETS.items():
+        with torch.device("meta"):
+            shapes = [p.shape for p in Generator(num_points=N_POINTS, **model).parameters()]
+        gen = torch.Generator(device=device).manual_seed(24)
+        init = [torch.randn(s, device=device, generator=gen) * 0.05 for s in shapes]
+        grads = [[torch.randn(s, device=device, generator=gen) * 1e-3 for s in shapes]
+                 for _ in range(ADAM_STEPS)]
+        ours = [p.clone().requires_grad_() for p in init]
+        theirs = [p.clone().requires_grad_() for p in init]
+        fused = [p.clone().requires_grad_() for p in init]
+        opt = adam.Adam(ours, **hyper)
+        ref = torch.optim.Adam(theirs, foreach=True, **hyper)
+        lib = torch.optim.Adam(fused, fused=True, **hyper)
+        launches = []
+        for step in range(ADAM_STEPS):
+            for a, b, c, g in zip(ours, theirs, fused, grads[step]):
+                a.grad, b.grad, c.grad = g, g, g  # none writes its gradient
+            before = adam.adam_kernel.launches
+            opt.step()
+            launches.append(adam.adam_kernel.launches - before)
+            ref.step()
+            lib.step()
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in init)
+        gaps, differ = {}, {}
+        for key in ("param", "exp_avg", "exp_avg_sq"):
+            pairs = [(a.detach(), b.detach()) if key == "param"
+                     else (opt.state[a][key], ref.state[b][key]) for a, b in zip(ours, theirs)]
+            gaps[key] = max(max_ulps(x, y) if key != "param" else float(
+                (x - y).abs().max() / (torch.finfo(torch.float32).eps * y.abs().max()))
+                for x, y in pairs)
+            differ[key] = sum(int((x != y).sum()) for x, y in pairs)
+        row = {"tensors": len(shapes), "parameters": n, "launches_a_step": launches,
+               "elements_last_step": adam.adam_kernel.elements, "max_ulps_vs_foreach": gaps,
+               "elements_differing_from_foreach": differ}
+        plain = [p.detach().clone() for p in ours]
+        moments = ([opt.state[p]["exp_avg"].clone() for p in ours],
+                   [opt.state[p]["exp_avg_sq"].clone() for p in ours])
+        steps = [float(ADAM_STEPS + 1)] * len(plain)
+        calls = {"kernel": opt.step, "library": lib.step, "foreach": ref.step,
+                 "plain": lambda: adam.adam_plain(plain, grads[0], *moments, steps, beta1=0.9,
+                                                  beta2=0.999, eps=1e-8, **hyper)}
+        for label, fn in calls.items():
+            row[f"{label}_ms"] = device_ms(fn, 20 if label != "plain" else 5)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            row[f"{label}_host_ms"] = (time.perf_counter() - t) * 1e3
+        row["bound_ms"] = n * ADAM_BYTES_PER_PARAM / PEAK_BYTES_PER_S * 1e3
+        row["kernel_bytes_per_s"] = n * ADAM_BYTES_PER_PARAM / row["kernel_ms"] * 1e3
+        out[name] = row
+        want = [-(-len(shapes) // adam.MAX_TENSORS)] * ADAM_STEPS
+        if (launches != want or adam.adam_kernel.elements != n
+                or gaps["exp_avg"] > 1 or gaps["exp_avg_sq"] > 1 or gaps["param"] > 4):
+            emit(out)
+            raise AssertionError(f"adam ({name}): launches {launches} (want {want}), elements "
+                                 f"{adam.adam_kernel.elements} (want {n}), ulps {gaps}")
+        del init, grads, ours, theirs, fused, opt, ref, lib, plain, moments, calls
+        torch.cuda.empty_cache()
+    emit(out)
     return out
 
 
@@ -1269,6 +1424,7 @@ def phase_train(device, n: int = N_POINTS) -> dict:
         plan = plan_launches()
         if plan != {"sinkhorn_plan": 3 if mode == "sinkhorn" else 0, "sinkhorn_plan_columns": 0}:
             raise AssertionError(f"train ({mode}) launched the plan kernels {plan}")
+        adam_launches = adam_counts(trainer, 3, f"train ({mode})")
         if not all(np.isfinite(v) for step in losses for v in step.values()):
             raise AssertionError(f"train ({mode}) losses are not finite: {losses}")
         if not losses[2]["total_loss"] < losses[0]["total_loss"]:
@@ -1287,7 +1443,7 @@ def phase_train(device, n: int = N_POINTS) -> dict:
                 gate_open_elements(pred, gt) for pred, gt in seen[:4]]
         emit({"phase": "train", "mode": mode, "config": overrides,
               "model": model_name(n), "batch": TRAIN_BATCH, "launches": launches,
-              "plan_launches": plan, "losses": losses,
+              "plan_launches": plan, "adam_launches": adam_launches, "losses": losses,
               "step_ms": step_ms, "step_event_ms": step_event_ms,
               "samples_per_s": TRAIN_BATCH * 3e3 / sum(step_ms),
               "split_step_ms": split, "max_memory_allocated_bytes": peak,
@@ -3607,7 +3763,7 @@ def phase_timing_wide(launches, pred, gt, train):
 # main's phases in their order; ``--phases`` picks some, and a picked phase
 # brings the phases whose results it takes (NEEDS).
 PHASES = ("kernels", "plan", "eval", "train", "timing", "analysis", "pix3d", "deploy", "serve",
-          "data", "parallel", "goldens", "viz", "checkpoint", "tools", "wide", "d2se")
+          "data", "parallel", "goldens", "viz", "checkpoint", "tools", "wide", "d2se", "adam")
 NEEDS = {"timing": ("eval", "train"), "analysis": ("eval",), "serve": ("deploy",),
          "parallel": ("data",), "viz": ("goldens",)}
 
@@ -3716,6 +3872,8 @@ def main(argv=None) -> int:
         new_paths["finetune_wide"] = train_wide["finetune"]
     if "d2se" in run:
         phase_d2se(device)
+    if "adam" in run:
+        phase_adam(device, reports)
     for row in rows:
         counter = next(k for k in ("emd_auction_stream", "emd_auction", "chamfer_nn", "sinkhorn")
                        if row["name"].startswith(k))

@@ -33,6 +33,7 @@ SOURCES = {
     "emd_auction": "emd_auction.cu",
     "sinkhorn": "sinkhorn.cu",
     "sinkhorn_plan": "sinkhorn_plan.cu",
+    "adam": "adam.cu",
 }
 
 # No --use_fast_math: the chamfer and auction kernels' arithmetic must be
@@ -56,6 +57,7 @@ SIGNATURES = {
         "fenet_sinkhorn_plan_rows": ([_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 3 + [_PTR], _INT),
         "fenet_sinkhorn_plan_cols": ([_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 3 + [_PTR], _INT),
     },
+    "adam": {"fenet_adam": ([_PTR] * 4 + [_INT] + [_FLOAT] * 5 + [_PTR], _INT)},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

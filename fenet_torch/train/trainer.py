@@ -5,7 +5,9 @@ rank of a ``data_parallel × model_parallel`` process mesh.
 Reference semantics kept:
 - ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8, weight_decay)``, L2
   decay added to the gradient before the moments (not AdamW), which is
-  fenet's ``add_decayed_weights`` -> ``scale_by_adam``;
+  fenet's ``add_decayed_weights`` -> ``scale_by_adam``; on the card its
+  step is one hand-written pass (:class:`fenet_torch.ops.adam.Adam`, a
+  ``torch.optim.Adam`` with torch's state);
 - the loss schedule: 100·CD + 100·EMD for epochs 1-30, 100·EMD after; CD
   is always computed, for the log;
 - the cumulative stepwise LR decay of :func:`reference_lr_schedule`, set on
@@ -47,6 +49,7 @@ from fenet_torch.losses.facade import chamfer_loss, emd_loss
 from fenet_torch.losses.projection import get_loss_proj
 from fenet_torch.losses.sinkhorn import sinkhorn_emd_loss
 from fenet_torch.models.repvgg import BatchNorm2d
+from fenet_torch.ops.adam import Adam
 from fenet_torch.parallel import tp
 from fenet_torch.parallel.mesh import Mesh, make_mesh, pmean_
 from fenet_torch.train.config import TrainConfig
@@ -70,10 +73,10 @@ def reference_lr_schedule(base_lr: float, epoch: int) -> float:
     return lr
 
 
-def make_optimizer(model: nn.Module, config: TrainConfig) -> torch.optim.Adam:
+def make_optimizer(model: nn.Module, config: TrainConfig) -> Adam:
     """The reference's optimizer; the LR is set per step by the trainer."""
-    return torch.optim.Adam(model.parameters(), lr=config.lr, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=config.weight_decay)
+    return Adam(model.parameters(), lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=config.weight_decay)
 
 
 class Trainer:
