@@ -18,8 +18,8 @@ backward -> Adam), its finetune step (the same plus 100·BCE of the
 projected silhouettes), its Pix3D evaluation, its serving path (deploy
 fold, export_deploy, the HTTP server, predict) and its on-disk data path
 (prepare_data, the native batch loader, train_net fed from a written tree),
-its parallel training (two ranks on torch.distributed, dp with sync-BN,
-the Megatron decoder split, the ring chamfer; NCCL in a world of one), and
+its parallel training (two ranks on torch.distributed, dp with sync-BN;
+NCCL in a world of one), and
 the rest (fscore, the dense auction and the Sinkhorn loss above 8192
 points, the reference's golden metrics, a profiler trace,
 the golden-table recorder, Grad-CAM, SimpleGenerator and the render and
@@ -156,12 +156,9 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    EMD, and with the one-process assignment replayed, gradients:
    PARALLEL_LIMITS), then step ms, the gradient all-reduce's ms and K1 2 /
    K3 1 launches a step; train_net for one epoch of 3 steps with
-   validation from the tree, every batch native; the ring chamfer at D=2
-   on RING_SHAPE against chamfer_distance (bit for bit on dyadic clouds;
-   the forward bit for bit and the gradients to 1e-6 on normal ones), K1
-   2·D times a forward a rank. A tp=2 pair: fc1_1 at (65536, 1024) a
-   rank, the same step checks, train_net writing a checkpoint of whole
-   tensors and resuming from it. NCCL in a world of one, joined through
+   validation from the tree, every batch native, then a run that resumes
+   from its checkpoint (rank 0 loads it and broadcasts) for epoch 2. NCCL
+   in a world of one, joined through
    fenet's environment variables: its collectives on a CUDA tensor and a
    one-step train_net.
 
@@ -347,15 +344,14 @@ TRAIN_MODES = {
 }
 # Phase parallel: two ranks on the one card (gloo: NCCL refuses two ranks on
 # one GPU), each a process of its own under RANK_TIMEOUT_S; the gradient rows
-# of fc1_1 each step rank saves; the ring chamfer's (B, N, M) at D = 2.
+# of fc1_1 each step rank saves.
 PARALLEL_RANKS = 2
 RANK_TIMEOUT_S = 600
 GRAD_ROWS = 256
-RING_SHAPE = (4, 16384, 16384)
 # A rank's step against the one-process step, replaying its assignment:
 # CD and EMD as phase_train_reference's card-vs-CPU limits; the decoder's
 # gradients (fc3_1, fc1_1's first rows) to 1e-3 relative L2, and two
-# backbone convs upstream of every sync-BN and Megatron collective to 1e-2,
+# backbone convs upstream of every sync-BN to 1e-2,
 # the card-vs-CPU gradient limit: a first layer's weight gradient is a
 # cancelling sum over every position of the batch, so the order of its sums
 # shows there (the phase prints the one-process step with its batch rows
@@ -2340,8 +2336,8 @@ def rel_l2(got, ref) -> float:
 
 
 def phase_parallel(device, data: dict) -> dict:
-    """Training and the ring chamfer in two rank processes on the one card
-    (gloo, each collective through host memory), against this process's
+    """Training in two rank processes on the one card (gloo, each
+    collective through host memory), against this process's
     one-process runs, and NCCL in a world of one; every rank launches K1
     and K3. The model and batch are phase train's: the unscaled seeded
     init, SyntheticShapeNet(variety=True)'s batch of TRAIN_BATCH.
@@ -2354,18 +2350,11 @@ def phase_parallel(device, data: dict) -> dict:
       fc1_1's first rows 1e-3 relative L2, two backbone convs 1e-2:
       PARALLEL_LIMITS; beside them the one-process step with its batch
       rows shuffled), the ranks' replicated gradients bit-identical;
-      3 more steps: step ms, the all-reduce's ms, K1 2 and K3 1 a step. Then train_net for one epoch of 3 steps with
-      validation, fed from phase data's tree: every batch native on both
-      ranks, the same history on both.
-    - tp=2 at dp=1: each rank holds fc1_1.weight at (65536, 1024); the
-      step as above (each rank's first rows of its block of fc1_1); then train_net writes a checkpoint of whole tensors
-      (fc1_1 and its Adam moments at (131072, 1024)), resumes from it and
-      re-shards.
-    - the ring chamfer at D=2 on RING_SHAPE, dyadic and normal clouds: the
-      forward's distances and indices bit for bit against chamfer_distance
-      here; the gradients bit for bit on dyadic clouds, to rtol 1e-6 / atol
-      1e-6 on normal ones (terms up to ~6: float32 spacing 4.8e-7); K1 2·D
-      times a forward on each rank.
+      3 more steps: step ms, the all-reduce's ms, K1 2 and K3 1 a step.
+      Then train_net for one epoch of 3 steps with validation, fed from
+      phase data's tree, and a second run that resumes from its checkpoint
+      (rank 0 loads, broadcasts) and runs epoch 2 with validation: every
+      batch native on both ranks, the same history on both.
     - NCCL, world 1, joined through the environment: collectives on a CUDA
       tensor, then a one-step train_net.
 
@@ -2379,7 +2368,6 @@ def phase_parallel(device, data: dict) -> dict:
     from fenet_torch.data.loader import DataLoader
     from fenet_torch.data.shapenet import NUM_VIEWS
     from fenet_torch.data.synthetic import SyntheticShapeNet
-    from fenet_torch.ops.chamfer import chamfer_distance
     from fenet_torch.tools import parallel_smoke
     from fenet_torch.train.trainer import Trainer, reference_lr_schedule
 
@@ -2413,11 +2401,9 @@ def phase_parallel(device, data: dict) -> dict:
     del trainer.emd, seen
     base["inputs"] = str(work / "batch.npz")
     ref_losses = {k: float(v) for k, v in stats.items()}
-    block = gen.fc1_1.weight.shape[0] // PARALLEL_RANKS
     params = dict(gen.named_parameters())
     ref_grads = {k: params[k].grad.cpu() for k in parallel_smoke.GRAD_KEYS}
-    ref_grads["fc1_1.weight"] = [gen.fc1_1.weight.grad[t * block:t * block + GRAD_ROWS].cpu()
-                                 for t in range(PARALLEL_RANKS)]
+    ref_grads["fc1_1.weight"] = ref_grads["fc1_1.weight"][:GRAD_ROWS]
     del params, trainer, gen, stats
     torch.cuda.empty_cache()
     # The float floor of those gradients: the same one-process step with its
@@ -2426,7 +2412,7 @@ def phase_parallel(device, data: dict) -> dict:
     # assignment.
     order = np.random.RandomState(0).permutation(TRAIN_BATCH)
     _, floor_grads, floor_trainer, _ = parallel_smoke._first_step(
-        {**base, "dp": 1, "tp": 1}, device, images[order], batch["points"][order],
+        {**base, "dp": 1}, device, images[order], batch["points"][order],
         assignment[torch.as_tensor(order, device=assignment.device)])
     del floor_trainer
     torch.cuda.empty_cache()
@@ -2437,32 +2423,28 @@ def phase_parallel(device, data: dict) -> dict:
 
     grad_checks = {"fc3_1_grad_rel_err": "fc3_1.weight",
                    "stage0_conv_grad_rel_err": "RepVGG.stage0.rbr_dense.conv.weight",
-                   "edge0_conv_grad_rel_err": "edge0.0.weight"}
+                   "edge0_conv_grad_rel_err": "edge0.0.weight",
+                   "fc1_1_grad_rel_err": "fc1_1.weight"}
 
-    def against_one(losses: dict, grads: dict, block: int) -> dict:
+    def against_one(losses: dict, grads: dict) -> dict:
         rel = {"cd_rel_err": abs(losses["chamfer_loss"] - ref_losses["chamfer_loss"])
                / abs(ref_losses["chamfer_loss"]),
                "emd_rel_err": abs(losses["emd_loss"] - ref_losses["emd_loss"])
-               / abs(ref_losses["emd_loss"]),
-               "fc1_1_grad_rel_err": rel_l2(grads["fc1_1.weight"],
-                                            ref_grads["fc1_1.weight"][block])}
+               / abs(ref_losses["emd_loss"])}
         rel.update({k: rel_l2(grads[name], ref_grads[name]) for k, name in grad_checks.items()})
         return rel
 
     floor = {k: rel_l2(floor_grads[name], ref_grads[name]) for k, name in grad_checks.items()}
-    floor["fc1_1_grad_rel_err"] = rel_l2(floor_grads["fc1_1.weight"],
-                                         ref_grads["fc1_1.weight"][0])
     del floor_grads
 
-    def check_step(label: str, results: list, dp: int, tp: int) -> None:
+    def check_step(label: str, results: list, dp: int) -> None:
         """Emit the ranks' steps against the one-process step, then raise on
         the first fault."""
-        saved = [torch.load(work / f"step_{dp}x{tp}_rank{r}.pt") for r in range(dp * tp)]
+        saved = [torch.load(work / f"step_dp{dp}_rank{r}.pt") for r in range(dp)]
         checks, faults = [], []
         for r, (res, grads) in enumerate(zip(results, saved)):
-            block = r % tp if tp > 1 else 0
-            rel = {"replayed": against_one(res["losses"], grads["replayed"], block),
-                   "free_auction": against_one(res["losses_free_auction"], grads["free"], block),
+            rel = {"replayed": against_one(res["losses"], grads["replayed"]),
+                   "free_auction": against_one(res["losses_free_auction"], grads["free"]),
                    "free_auction_matching": res["free_auction_matching"]}
             checks.append(rel)
             bad = {k: v for k, v in rel["replayed"].items() if not v <= limits[k]}
@@ -2482,7 +2464,6 @@ def phase_parallel(device, data: dict) -> dict:
         emit({"phase": "parallel", "run": f"{label} step", "backend": "gloo",
               "transport": results[0]["transport"], "model": model_name(N_POINTS),
               "global_batch": TRAIN_BATCH, "local_batch": results[0]["local_batch"],
-              "fc1_1_shape_per_rank": results[0]["fc1_1_shape"],
               "vs_one_process": checks, "one_process_reordered": floor, "limits": limits,
               "one_process_losses": ref_losses,
               "per_rank": [{k: res[k] for k in ("losses", "step_ms", "all_reduce_ms",
@@ -2491,112 +2472,46 @@ def phase_parallel(device, data: dict) -> dict:
         if faults:
             raise AssertionError(f"parallel {label}: " + "; ".join(faults))
 
-    def check_train_net(label: str, results: list, steps: int, val_batches: int) -> None:
-        want = {"chamfer_nn": 2 * (steps + val_batches), "emd_auction": steps + val_batches,
-                "emd_auction_stream": 0}
-        for r, res in enumerate(results):
-            for i, run in enumerate(res["runs"]):
-                if run["launches"] != want:
-                    raise AssertionError(f"parallel {label} train_net rank {r} run {i} "
-                                         f"launched {run['launches']}, not {want}")
-                native = {"native": steps + val_batches, "declined": 0}
-                if run["batch_counts"] != native:
-                    raise AssertionError(f"parallel {label} train_net rank {r} run {i} "
-                                         f"batches {run['batch_counts']}, not {native}")
-                paths[f"parallel_{label}_train_net_rank{r}" + (f"_run{i}" if i else "")] = \
-                    run["launches"]
-        histories = [[run["history"] for run in res["runs"]] for res in results]
-        if any(h != histories[0] for h in histories[1:]):
-            raise AssertionError(f"parallel {label} train_net: the ranks' histories "
-                                 f"differ: {histories}")
-
     # Phase data's tree: its train and val splits both hold every sample; a
-    # rank reads half of each at half the batch (tp peers all of it).
+    # rank reads half of each at half the batch.
     steps = DATA_MODELS * NUM_VIEWS // TRAIN_BATCH
     val_batches = -(-DATA_MODELS * NUM_VIEWS // TRAIN_BATCH)
-    # The ring's clouds, dyadic and normal.
-    b, n, m = RING_SHAPE
-    rng = np.random.RandomState(3)
-    clouds = {"dyadic": (rng.randint(-64, 65, (b, n, 3)) / 64.0,
-                         rng.randint(-64, 65, (b, m, 3)) / 64.0,
-                         rng.randint(1, 9, (b, n)) / 8.0, rng.randint(1, 9, (b, m)) / 8.0),
-              "normal": (rng.normal(size=(b, n, 3)), rng.normal(size=(b, m, 3)),
-                         rng.rand(b, n), rng.rand(b, m))}
-    np.savez(work / "ring.npz", **{f"{kind}.{k}": np.asarray(v, np.float32)
-                                   for kind, arrays in clouds.items()
-                                   for k, v in zip(("x1", "x2", "w1", "w2"), arrays)})
+    want = {"chamfer_nn": 2 * (steps + val_batches), "emd_auction": steps + val_batches,
+            "emd_auction_stream": 0}
+    native = {"native": steps + val_batches, "declined": 0}
 
-    # dp = 2 with sync-BN: the step, train_net with validation, the ring.
-    results = spawn_ranks("dp2", {**base, "dp": 2, "tp": 1, "cases": [
+    # dp = 2 with sync-BN: the step, train_net with validation, and a run
+    # that resumes from its checkpoint (rank 0 loads, broadcasts).
+    results = spawn_ranks("dp2", {**base, "dp": 2, "cases": [
         ["step", {}],
-        ["train_net", {"validate": [1], "save_freq": 0, "resume": False,
-                       "out": str(work / "dp_out")}],
-        ["ring", {"inputs": str(work / "ring.npz")}]]}, PARALLEL_RANKS, work)
-    check_step("dp2", [res["step"] for res in results], 2, 1)
-    train_nets = [res["train_net"] for res in results]
-    check_train_net("dp2", train_nets, steps, val_batches)
-    if train_nets[0]["runs"][0]["data_parallel"] != 2:
-        raise AssertionError(f"parallel dp2 train_net sized the mesh {train_nets[0]}")
-    emit({"phase": "parallel", "run": "dp2 train_net", "backend": "gloo",
+        ["train_net", {"validate": [1, 2], "resume": True, "out": str(work / "dp_out")}]]},
+        PARALLEL_RANKS, work)
+    shutil.rmtree(data["root"])  # phase data's tree
+    check_step("dp2", [res["step"] for res in results], 2)
+    train_nets = [res["train_net"]["runs"] for res in results]
+    for r, runs in enumerate(train_nets):
+        for i, run in enumerate(runs):
+            if run["launches"] != want:
+                raise AssertionError(f"parallel dp2 train_net rank {r} run {i} launched "
+                                     f"{run['launches']}, not {want}")
+            if run["batch_counts"] != native:
+                raise AssertionError(f"parallel dp2 train_net rank {r} run {i} batches "
+                                     f"{run['batch_counts']}, not {native}")
+            if run["data_parallel"] != 2:
+                raise AssertionError(f"parallel dp2 train_net rank {r} run {i} sized the "
+                                     f"mesh {run['data_parallel']}")
+            paths[f"parallel_dp2_train_net_rank{r}" + (f"_run{i}" if i else "")] = \
+                run["launches"]
+    histories = [[run["history"] for run in runs] for runs in train_nets]
+    if any(h != histories[0] for h in histories[1:]):
+        raise AssertionError(f"parallel dp2 train_net: the ranks' histories differ: "
+                             f"{histories}")
+    if [[h["epoch"] for h in history] for history in histories[0]] != [[1], [2]]:
+        raise AssertionError(f"parallel dp2 train_net ran the epochs {histories[0]}, not "
+                             "[1] then, resumed, [2]")
+    emit({"phase": "parallel", "run": "dp2 train_net (write, resume)", "backend": "gloo",
           "per_rank": train_nets})
     shutil.rmtree(work / "dp_out")
-    rings = [res["ring"] for res in results]
-
-    # tp = 2 at dp = 1: the step, train_net writing a checkpoint and resuming.
-    results = spawn_ranks("tp2", {**base, "dp": 1, "tp": 2, "cases": [
-        ["step", {}],
-        ["train_net", {"validate": [], "save_freq": 1, "resume": True,
-                       "out": str(work / "tp_out")}]]}, PARALLEL_RANKS, work)
-    shutil.rmtree(data["root"])  # phase data's tree
-    steps_tp = [res["step"] for res in results]
-    if steps_tp[0]["fc1_1_shape"] != [256 * MODEL["fine_width"] // 2, 1024]:
-        raise AssertionError(f"parallel tp2: fc1_1 per rank {steps_tp[0]['fc1_1_shape']}")
-    check_step("tp2", steps_tp, 1, 2)
-    train_nets = [res["train_net"] for res in results]
-    whole = [256 * MODEL["fine_width"], 1024]
-    shapes = train_nets[0]["checkpoint_fc1_1_shapes"]
-    if shapes != {"weight": whole, "exp_avg": whole} or train_nets[0]["fc1_1_whole_shape"] != whole:
-        raise AssertionError(f"parallel tp2 checkpoint shapes {shapes}, resumed whole "
-                             f"{train_nets[0]['fc1_1_whole_shape']}, not {whole}")
-    if [h["epoch"] for h in train_nets[0]["runs"][1]["history"]] != [2]:
-        raise AssertionError(f"parallel tp2 resume ran {train_nets[0]['runs'][1]['history']}")
-    check_train_net("tp2", train_nets, steps, 0)
-    emit({"phase": "parallel", "run": "tp2 train_net (write, resume)", "backend": "gloo",
-          "per_rank": train_nets})
-    shutil.rmtree(work / "tp_out")
-
-    # The ring chamfer at D = 2 (the dp pair's), against the one-process op.
-    ring = {}
-    for kind, arrays in clouds.items():
-        x1, x2, w1, w2 = (torch.as_tensor(np.asarray(v, np.float32), device=device)
-                          for v in arrays)
-        x1.requires_grad_(True)
-        x2.requires_grad_(True)
-        d1, d2, i1, i2 = chamfer_distance(x1, x2)
-        ((d1 * w1).sum() + (d2 * w2).sum()).backward()
-        ref = {"d1": d1.detach().cpu(), "d2": d2.detach().cpu(), "i1": i1.cpu(), "i2": i2.cpu(),
-               "g1": x1.grad.cpu(), "g2": x2.grad.cpu()}
-        parts = [torch.load(work / f"ring_{kind}_rank{r}.pt") for r in range(PARALLEL_RANKS)]
-        got = {k: torch.cat([p[k] for p in parts], dim=1) for k in ref}
-        exact = {k: bool(torch.equal(got[k], ref[k])) for k in ref}
-        for key in ("d1", "d2", "i1", "i2") + (("g1", "g2") if kind == "dyadic" else ()):
-            if not exact[key]:
-                raise AssertionError(f"parallel ring ({kind}): {key} differs from "
-                                     "chamfer_distance")
-        if kind == "normal":
-            for key in ("g1", "g2"):
-                torch.testing.assert_close(got[key], ref[key], rtol=1e-6, atol=1e-6)
-        for r, res in enumerate(rings):
-            if res[kind]["launches_forward"]["chamfer_nn"] != 2 * PARALLEL_RANKS:
-                raise AssertionError(f"parallel ring rank {r}: K1 launched "
-                                     f"{res[kind]['launches_forward']}, not 2·D")
-        ring[kind] = {"bit_exact": exact, "grad_max_abs_err": {
-            k: float((got[k] - ref[k]).abs().max()) for k in ("g1", "g2")}}
-    for r, res in enumerate(rings):
-        paths[f"parallel_ring_forward_rank{r}"] = res["dyadic"]["launches_forward"]
-    emit({"phase": "parallel", "run": "ring chamfer", "D": PARALLEL_RANKS,
-          "shape": RING_SHAPE, "backend": "gloo", "transport": rings[0]["transport"],
-          "vs_one_process": ring, "per_rank": rings})
 
     # NCCL, a world of one, joined through fenet's environment variables.
     results = spawn_ranks("nccl", {**base, "cases": [["nccl", {"out": str(work / "nccl_out")}]]},
@@ -2611,7 +2526,7 @@ def phase_parallel(device, data: dict) -> dict:
     emit({"phase": "parallel", "run": "nccl world 1", **res})
     shutil.rmtree(work)
     emit({"phase": "parallel", "run": "summary", "wall_s": time.perf_counter() - t_phase,
-          "rank_processes": 2 * PARALLEL_RANKS + 1})
+          "rank_processes": PARALLEL_RANKS + 1})
     return paths
 
 

@@ -44,11 +44,8 @@ def add_common_args(parser: argparse.ArgumentParser):
                         help="decoder mid-head per-point channels "
                              "(reference: 128)")
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help="ranks in the batch axis (1: the world size "
-                             "over --model_parallel); one process a rank")
-    parser.add_argument("--model_parallel", type=int, default=1,
-                        help="ranks that split the decoder's heads "
-                             "(Megatron tensor parallelism)")
+                        help="data-parallel ranks (1: the world size); "
+                             "one process a rank")
     parser.add_argument("--emd_iters", type=int, default=3000)
     parser.add_argument("--emd_eps", type=float, default=0.05)
     parser.add_argument("--emd_scale_phases", type=int, default=1,
@@ -109,7 +106,6 @@ def config_from_args(opt) -> TrainConfig:
         fine_width=opt.fine_width,
         mid_width=opt.mid_width,
         data_parallel=opt.data_parallel,
-        model_parallel=opt.model_parallel,
         emd_eps=opt.emd_eps,
         emd_iters=opt.emd_iters,
         emd_scale_phases=opt.emd_scale_phases,

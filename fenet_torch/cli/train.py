@@ -6,8 +6,7 @@ flags, plus ``--device``.
         --data_dir_imgs data/ShapeNetRendering/ \\
         --data_dir_pcl data/ShapeNet_pointclouds/
 
-On several cards, one process a card (data parallel; add
-``--model_parallel 2`` to split the decoder's heads over pairs of ranks):
+On several cards, one process a card (data parallel):
 
     torchrun --nproc_per_node 4 -m fenet_torch.cli.train --cats 02828884 ...
 

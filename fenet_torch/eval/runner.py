@@ -18,7 +18,7 @@ from fenet_torch.geometry.icp import align_pred_to_gt
 from fenet_torch.ops.chamfer import chamfer_distance
 from fenet_torch.ops.emd import earth_mover_distance
 from fenet_torch.parallel.distributed import world_size
-from fenet_torch.parallel.mesh import Mesh, all_gather
+from fenet_torch.parallel.mesh import all_gather
 from fenet_torch.utils.device import full_fp32, resolve_device
 
 
@@ -77,7 +77,6 @@ def evaluate_dataset(
     category: str = "",
     logger=None,
     device="cuda",
-    mesh: Mesh | None = None,
     **step_kwargs,
 ) -> Tuple[Metrics, Metrics, Dict[str, float]]:
     """Full-dataset eval; returns (chamfer Metrics, emd Metrics, summary).
@@ -88,9 +87,7 @@ def evaluate_dataset(
     On several processes each rank evaluates the shard its loader reads;
     the shard's wrap-around duplicates (``wrap_duplicates``, at its end)
     run through the step but stay out of the sums, and the ranks' (EMD, CD,
-    count) sums are gathered. Tensor-parallel peers (``mesh.tp`` of them)
-    evaluate identical rows, so the gathered sums are divided by their
-    number. Every rank returns the same summary.
+    count) sums are gathered. Every rank returns the same summary.
     """
     step = make_eval_step(model, device=device, **step_kwargs)
     shard = getattr(dataloader, "dataset", None)
@@ -115,9 +112,7 @@ def evaluate_dataset(
     if world_size() > 1:
         sums = torch.tensor([emd_sum, cd_sum, float(n_samples)], dtype=torch.float64)
         total = torch.stack(all_gather(sums)).sum(dim=0)
-        peers = mesh.tp if mesh is not None else 1
-        emd_sum, cd_sum = float(total[0]) / peers, float(total[1]) / peers
-        n_samples = int(round(float(total[2]) / peers))
+        emd_sum, cd_sum, n_samples = float(total[0]), float(total[1]), int(round(float(total[2])))
     avg = [emd_sum / max(n_samples, 1), cd_sum / max(n_samples, 1)]
     summary = {
         "EMD_distance": avg[0],

@@ -34,7 +34,6 @@ from fenet_torch.models.repvgg import (
     _fuse_conv_bn,
     fold_repvgg_params,
 )
-from fenet_torch.parallel.mesh import copy_to_group, reduce_from_group
 from fenet_torch.utils.profiling import span
 
 # The reference's fixed 3x3 edge filter, the same for every (out, in) pair.
@@ -83,16 +82,7 @@ class EdgeBranch(nn.Module):
 
 class CascadedDecoder(nn.Module):
     """Coarse-to-fine decoder: 128 points, 2x offsets -> 256, then
-    (num_points/256)x offsets -> num_points.
-
-    Under tensor parallelism (``tp_group`` set by
-    :func:`fenet_torch.parallel.tp.shard_model_`) each rank holds a
-    contiguous block of ``fc1_1``'s and ``fc2_1``'s output rows
-    (column-parallel: whole channels of the channel-major reshape) and the
-    matching input channels of ``conv1_1`` and ``conv2_1`` (row-parallel);
-    the row-parallel outputs are summed over the group and their bias is
-    added once, after the sum.
-    """
+    (num_points/256)x offsets -> num_points."""
 
     def __init__(self, num_points: int = 1024, fine_width: int = 512,
                  mid_width: int = 128):
@@ -110,17 +100,6 @@ class CascadedDecoder(nn.Module):
         self.conv1_2 = nn.Conv1d(fine_width, 256, 1)
         self.conv1_3 = nn.Conv1d(256, 3 * (num_points // 256), 1)
         self.conv2_1 = nn.Conv1d(mid_width, 6, 1)
-        self.tp_group = None
-
-    def _column(self, fc: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        if self.tp_group is not None:
-            x = copy_to_group(x, self.tp_group)
-        return fc(x)
-
-    def _row(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-        if self.tp_group is None:
-            return conv(x)
-        return reduce_from_group(F.conv1d(x, conv.weight), self.tp_group) + conv.bias[:, None]
 
     def forward(self, feat: torch.Tensor):
         b = feat.shape[0]
@@ -129,13 +108,13 @@ class CascadedDecoder(nn.Module):
         x3 = torch.relu(self.fc3(x2))
         pc1 = self.fc3_1(x3).reshape(b, 128, 3)
 
-        pc2_feat = torch.relu(self._column(self.fc2_1, x2)).reshape(b, -1, 128)
-        pc2_off = self._row(self.conv2_1, pc2_feat).transpose(1, 2).reshape(b, 128, 2, 3)
+        pc2_feat = torch.relu(self.fc2_1(x2)).reshape(b, -1, 128)
+        pc2_off = self.conv2_1(pc2_feat).transpose(1, 2).reshape(b, 128, 2, 3)
         pc2 = (pc1[:, :, None, :] + pc2_off).reshape(b, 256, 3)
 
         k = self.num_points // 256
-        pc3_feat = torch.relu(self._column(self.fc1_1, x1)).reshape(b, -1, 256)
-        pc3_feat = torch.relu(self._row(self.conv1_1, pc3_feat))
+        pc3_feat = torch.relu(self.fc1_1(x1)).reshape(b, -1, 256)
+        pc3_feat = torch.relu(self.conv1_1(pc3_feat))
         pc3_feat = torch.relu(self.conv1_2(pc3_feat))
         pc3_off = self.conv1_3(pc3_feat).transpose(1, 2).reshape(b, 256, k, 3)
         pc3 = (pc2[:, :, None, :] + pc3_off).reshape(b, self.num_points, 3)

@@ -46,13 +46,20 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# C functions whose argument and result types are set once, when their
-# library is loaded, and not on every call: {library: {symbol: (argtypes,
-# restype)}}. Pointers and the stream are c_void_p (a plain int would cut
-# them to 32 bits).
+# The types of every C entry point (``extern "C" int fenet_*`` in csrc/),
+# set once, when its library is loaded, and never on a call: {library:
+# {symbol: (argtypes, restype)}}. Pointers and the stream are c_void_p (a
+# plain int would cut them to 32 bits).
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_AUCTION_TAIL = [_INT] * 2 + [_PTR] + [_INT] * 4 + [_FLOAT, _PTR]
 SIGNATURES = {
     "chamfer_nn": {"fenet_chamfer_nn_split": ([_PTR] * 5 + [_INT] * 4 + [_PTR], _INT)},
+    "emd_auction": {
+        "fenet_emd_auction": ([_PTR] * 5 + _AUCTION_TAIL, _INT),
+        "fenet_emd_auction_stream": ([_PTR] * 6 + _AUCTION_TAIL, _INT),
+        "fenet_emd_root_check": ([_PTR, _PTR], _INT),
+    },
+    "sinkhorn": {"fenet_sinkhorn": ([_PTR] * 5 + [_INT] * 4 + [_FLOAT] * 2 + [_PTR], _INT)},
     "sinkhorn_plan": {
         "fenet_sinkhorn_plan_rows": ([_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 3 + [_PTR], _INT),
         "fenet_sinkhorn_plan_cols": ([_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 3 + [_PTR], _INT),

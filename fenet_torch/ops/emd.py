@@ -289,10 +289,6 @@ def auction_kernel(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
         fn = _build.library("emd_auction").fenet_emd_auction_stream
     else:
         fn = _build.library("emd_auction").fenet_emd_auction
-    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x1.device):
         status = fn(*pointers, bsz, n, ctypes.addressof(eps_table), scale_phases, iters,
                     int(early_exit), int(adaptive),
@@ -319,8 +315,6 @@ def root_mismatches(device: torch.device):
     ``(patterns whose bits differ, the lowest of them or None)``."""
     out = torch.tensor([0, 1 << 32], dtype=torch.int64, device=device)
     fn = _build.library("emd_auction").fenet_emd_root_check
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         status = fn(out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(status, "emd_root_check")

@@ -106,9 +106,6 @@ def potentials_kernel(x: torch.Tensor, y: torch.Tensor, eps: float, iters: int,
     f = torch.empty((bsz, n), dtype=torch.float32, device=x.device)
     g = torch.empty((bsz, m), dtype=torch.float32, device=x.device)
     fn = _build.library("sinkhorn").fenet_sinkhorn
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         status = fn(x.data_ptr(), y.data_ptr(), table.data_ptr(), f.data_ptr(),
                     g.data_ptr(), bsz, n, m, iters, -math.log(n), -math.log(m),

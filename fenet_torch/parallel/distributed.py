@@ -123,14 +123,6 @@ def local_batch_size(global_batch: int, process_count: Optional[int] = None) -> 
     return global_batch // n
 
 
-def batch_process_groups(mesh) -> tuple:
-    """(group_index, group_count) of this process along the mesh's batch
-    axis. Tensor-parallel peers hold the same batch rows and must feed
-    identical local batches, so datasets are sharded per group; on a mesh
-    without tensor parallelism this is (rank, world size)."""
-    return mesh.dp_index, mesh.dp
-
-
 def shard_for_process(dataset):
     """``dataset`` wrapped in :class:`ProcessShardDataset` on a multi-process
     run, else unchanged: each process evaluates only its shard, and

@@ -1,13 +1,12 @@
-"""The (batch, model) process mesh and its collectives (counterpart of
+"""The data-parallel process mesh and its collectives (counterpart of
 ``fenet/parallel/mesh.py``).
 
 fenet shards one program over a device mesh with ``shard_map``. Here each
-rank is a process: rank ``r`` sits at ``(r // tp, r % tp)`` of a
-``dp × tp`` mesh. The ranks of one mesh column (one tensor-parallel index)
-form the data-parallel group, over which gradients, losses and BatchNorm
-statistics are averaged; the ranks of one row (one batch shard) form the
-tensor-parallel group of the Megatron decoder split
-(:mod:`fenet_torch.parallel.tp`).
+rank is a process, and every rank holds the whole model: the mesh is the
+world of ranks, over which gradients, losses and BatchNorm statistics are
+averaged. fenet's model axis (Megatron tensor parallelism of the decoder's
+heads) has no counterpart: it splits ``fc1_1`` because a TPU core's memory
+is small, and the whole training state fits one H100 many times over.
 
 Transport: NCCL takes CUDA tensors and gloo takes CPU tensors. A collective
 here runs on the tensor where its group's backend takes it, and stages it
@@ -15,13 +14,9 @@ through the other device otherwise; that is chosen by the backend, never by
 catching an error (:func:`transport`). So two ranks that share one card
 run on gloo, with each collective copied through host memory.
 
-Three differentiable collectives, whose backward each state:
-:func:`all_reduce_sum` (sum forward, sum backward: sync-BN's statistics,
-where every rank's loss depends on every rank's rows),
-:func:`reduce_from_group` (sum forward, identity backward: the
-row-parallel output, whose downstream loss every peer holds whole) and
-:func:`copy_to_group` (identity forward, sum backward: the column-parallel
-input, whose gradient from one shard is partial).
+One differentiable collective, :func:`all_reduce_sum` (sum forward, sum
+backward): sync-BN's statistics, where every rank's loss depends on every
+rank's rows.
 """
 
 from __future__ import annotations
@@ -37,31 +32,11 @@ from fenet_torch.parallel.distributed import world_size
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``dp × tp`` mesh of ranks and this rank's two groups (None where
-    the axis has size 1; a one-process mesh has neither)."""
+    """The data-parallel mesh: its size and the group of its ranks (None on
+    one process)."""
 
     dp: int = 1
-    tp: int = 1
-    rank: int = 0
-    dp_group: Optional[dist.ProcessGroup] = None
-    tp_group: Optional[dist.ProcessGroup] = None
-
-    @property
-    def size(self) -> int:
-        return self.dp * self.tp
-
-    @property
-    def dp_index(self) -> int:
-        return self.rank // self.tp
-
-    @property
-    def tp_index(self) -> int:
-        return self.rank % self.tp
-
-    @property
-    def world_group(self) -> Optional[dist.ProcessGroup]:
-        """The default group where the mesh has more than one rank."""
-        return dist.group.WORLD if self.size > 1 else None
+    group: Optional[dist.ProcessGroup] = None
 
 
 LAUNCH_HINT = (
@@ -71,29 +46,18 @@ LAUNCH_HINT = (
     "(FENET_DIST_BACKEND=gloo for ranks that share one card)")
 
 
-def make_mesh(data_parallel: int = 1, model_parallel: int = 1) -> Mesh:
+def make_mesh(data_parallel: int = 1) -> Mesh:
     """The mesh over every rank of the process group. ``data_parallel`` 1
-    sizes the batch axis to ``world / model_parallel``, as fenet's driver
-    does; otherwise ``data_parallel × model_parallel`` must be the world
-    size. Every rank makes every group, in the same order."""
+    sizes it to the world, as fenet's driver does; any other value must be
+    the world size."""
     world = world_size()
-    tp = max(int(model_parallel), 1)
-    if world % tp:
-        raise ValueError(f"model_parallel {tp} does not divide the world of {world} "
-                         f"processes; {LAUNCH_HINT}")
-    dp = world // tp if data_parallel <= 1 else int(data_parallel)
-    if dp * tp != world:
-        raise ValueError(f"data_parallel × model_parallel = {dp} × {tp} needs {dp * tp} "
-                         f"processes, this run has {world}; {LAUNCH_HINT}")
+    dp = world if data_parallel <= 1 else int(data_parallel)
+    if dp != world:
+        raise ValueError(f"data_parallel {dp} needs {dp} processes, this run has {world}; "
+                         f"{LAUNCH_HINT}")
     if world == 1:
         return Mesh()
-    dp_groups = [dist.new_group([d * tp + t for d in range(dp)]) for t in range(tp)] \
-        if dp > 1 else None
-    tp_groups = [dist.new_group([d * tp + t for t in range(tp)]) for d in range(dp)] \
-        if tp > 1 else None
-    rank = dist.get_rank()
-    return Mesh(dp, tp, rank, dp_groups[rank % tp] if dp_groups else None,
-                tp_groups[rank // tp] if tp_groups else None)
+    return Mesh(dp, dist.group.WORLD)
 
 
 def transport(group=None, device: torch.device | None = None) -> str:
@@ -221,42 +185,8 @@ class _AllReduceSum(torch.autograd.Function):
         return all_reduce_(grad.clone(), ctx.group), None
 
 
-class _ReduceFromGroup(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        return all_reduce_(x.clone(), group)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
-class _CopyToGroup(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return all_reduce_(grad.clone(), ctx.group), None
-
-
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over ``group``; backward sums the gradients over it too. Right
     where each rank's loss is its own and the objective is their sum (or
     mean): sync-BN's statistics."""
     return _AllReduceSum.apply(x, group)
-
-
-def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
-    """Sum over ``group``; backward passes the gradient through. Megatron's
-    row-parallel output: every peer computes the same loss from the sum, so
-    summing the gradient too would count it ``group size`` times."""
-    return _ReduceFromGroup.apply(x, group)
-
-
-def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
-    """Identity; backward sums the gradient over ``group``. Megatron's
-    column-parallel input: each peer's shard contributes part of it."""
-    return _CopyToGroup.apply(x, group)

@@ -6,26 +6,23 @@ The spec (JSON) names this process's rank, the world, the coordinator's
 port, the device and the model, and the cases to run in turn, each with
 its own keys (where its inputs lie, where it writes). Each rank prints one
 line ``RESULT {json}`` with every case's result and saves what the parent
-compares bit for bit (gradients, ring outputs) under the spec's ``work``
-directory; the parent (``chip_smoke.py``) holds them against the
-one-process run on the same card. One process runs several cases, since a
-process takes ~15 s to start and reach the card. Cases:
+compares bit for bit (gradients) under the spec's ``work`` directory; the
+parent (``chip_smoke.py``) holds them against the one-process run on the
+same card. One process runs several cases, since a process takes ~15 s to
+start and reach the card. Cases:
 
-- ``step`` (``dp`` × ``tp`` ranks, gloo): this rank's rows of the saved
-  batch, one train step from the seeded init, twice: left to its own
-  auction, and replaying the one-process run's assignment (K3 still
-  launches); saves both steps' compared gradients (GRAD_KEYS) and reports
-  their losses and how the free auction's matching differs from the
-  one-process run's on this rank's predictions; then 3 timed steps: step ms (host clock around synchronised
-  work), the all-reduce's ms (``Trainer.all_reduce_``, synchronised around
-  it) and the kernels' launches a step.
+- ``step`` (``dp`` ranks, gloo): this rank's rows of the saved batch, one
+  train step from the seeded init, twice: left to its own auction, and
+  replaying the one-process run's assignment (K3 still launches); saves
+  both steps' compared gradients (GRAD_KEYS) and reports their losses and
+  how the free auction's matching differs from the one-process run's on
+  this rank's predictions; then 3 timed steps: step ms (host clock around
+  synchronised work), the all-reduce's ms (``Trainer.all_reduce_``,
+  synchronised around it) and the kernels' launches a step.
 - ``train_net`` (gloo): ``train_net`` from the seeded init, fed from the
   written tree through ``ProcessShardDataset``; with ``resume`` a second
   run resumes from the first run's checkpoint. The launches and the
   DataLoader's native and declined batches of each run.
-- ``ring`` (gloo): the ring chamfer over the point axis on the saved
-  clouds; saves this rank's outputs and gradients; K1's launches in the
-  forward, its ms, the transport.
 - ``nccl`` (world 1, joined through fenet's environment variables): one
   all-reduce, broadcast and all-gather of a CUDA tensor, then a one-step
   ``train_net``.
@@ -47,7 +44,6 @@ from fenet_torch.data import loader as data_loader
 from fenet_torch.models.generator import Generator, init_random_
 from fenet_torch.ops import chamfer, emd
 from fenet_torch.ops.pairwise import sqnorm
-from fenet_torch.parallel import sp
 from fenet_torch.parallel.distributed import finalize, initialize
 from fenet_torch.parallel.mesh import transport
 from fenet_torch.train.config import TrainConfig
@@ -57,8 +53,7 @@ CAT = "02828884"
 PG_TIMEOUT_S = 300
 TIMED_STEPS = 3
 # The gradients a step saves: the decoder's head, the first rows of
-# fc1_1 (this rank's block under TP), and two backbone convs upstream of
-# every sync-BN and of the column-parallel input's gradient sum.
+# fc1_1, and two backbone convs upstream of every sync-BN.
 GRAD_KEYS = ("fc3_1.weight", "fc1_1.weight", "RepVGG.stage0.rbr_dense.conv.weight",
              "edge0.0.weight")
 
@@ -106,8 +101,7 @@ def _first_step(spec: dict, device: torch.device, images, points, assignment=Non
     ~1e-6 apart. The loss and its gradient are the EMD op's for a fixed
     assignment."""
     gen = init_model(spec, device)
-    trainer = Trainer(gen, _config(spec, data_parallel=spec["dp"], model_parallel=spec["tp"]),
-                      device=device)
+    trainer = Trainer(gen, _config(spec, data_parallel=spec["dp"]), device=device)
     emd_term, seen = trainer.emd, []
 
     def hooked(pred, gt):
@@ -158,10 +152,10 @@ def case_step(spec: dict, device: torch.device) -> dict:
     """The step twice from the init, left to its own auction and replaying
     the one-process run's assignment (rows of this rank); then 3 timed
     steps."""
-    dp, tp_size, rank = spec["dp"], spec["tp"], spec["rank"]
+    dp, rank = spec["dp"], spec["rank"]
     blob = np.load(spec["inputs"])
     local = spec["batch"] // dp
-    rows = slice(rank // tp_size * local, (rank // tp_size + 1) * local)
+    rows = slice(rank * local, (rank + 1) * local)
     images, points = blob["images"][rows], blob["points"][rows]
     ref_assignment = torch.as_tensor(blob["assignment"][rows])
     losses_free, grads_free, trainer, (pred, gt) = _first_step(spec, device, images, points)
@@ -169,7 +163,7 @@ def case_step(spec: dict, device: torch.device) -> dict:
     del trainer, pred, gt
     losses, grads, trainer, _ = _first_step(spec, device, images, points, ref_assignment)
     torch.save({"free": grads_free, "replayed": grads},
-               Path(spec["work"]) / f"step_{dp}x{tp_size}_rank{rank}.pt")
+               Path(spec["work"]) / f"step_dp{dp}_rank{rank}.pt")
 
     all_reduce_ms = []
     reduce = trainer.all_reduce_
@@ -191,19 +185,22 @@ def case_step(spec: dict, device: torch.device) -> dict:
         float(out["total_loss"])  # synchronises
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = launch_counts()
-    model = trainer.model
     return {"losses": losses, "losses_free_auction": losses_free,
             "free_auction_matching": matching, "local_batch": local,
             "step_ms": step_ms, "all_reduce_ms": all_reduce_ms,
-            "gradient_bytes": 4 * sum(p.numel() for p in model.parameters()),
+            "gradient_bytes": 4 * sum(p.numel() for p in trainer.model.parameters()),
             "launches_per_step": {k: v / TIMED_STEPS for k, v in launches.items()},
-            "fc1_1_shape": list(model.fc1_1.weight.shape),
-            "transport": transport(trainer.mesh.world_group, device)}
+            "transport": transport(trainer.mesh.group, device)}
 
 
-def _train_net(spec: dict, device: torch.device, cfg: TrainConfig) -> dict:
+def _train_net(spec: dict, device: torch.device, **kw) -> dict:
     from fenet_torch.train.driver import train_net
 
+    tree = spec["tree"]
+    cfg = _config(spec, validate_epochs=tuple(spec["validate"]), manual_seed=spec["seed"],
+                  train_save_freq=0, dir_path=spec["out"], splits_path=f"{tree}/splits",
+                  data_dir_imgs=f"{tree}/ShapeNetRendering/",
+                  data_dir_pcl=f"{tree}/ShapeNet_pointclouds/", **kw)
     reset_counts()
     data_loader.batch_counts.update(native=0, declined=0)
     _sync(device)
@@ -218,65 +215,17 @@ def _train_net(spec: dict, device: torch.device, cfg: TrainConfig) -> dict:
         raise AssertionError(f"train_net losses are not finite: {history}")
     return {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
             "batch_counts": dict(data_loader.batch_counts), "history": history,
-            "data_parallel": cfg.data_parallel, "trainer": out["trainer"]}
+            "data_parallel": cfg.data_parallel}
 
 
 def case_train_net(spec: dict, device: torch.device) -> dict:
-    tree = spec["tree"]
-    kw = dict(nepoch=1, validate_epochs=tuple(spec["validate"]), manual_seed=spec["seed"],
-              train_save_freq=spec["save_freq"], dir_path=spec["out"],
-              splits_path=f"{tree}/splits", data_dir_imgs=f"{tree}/ShapeNetRendering/",
-              data_dir_pcl=f"{tree}/ShapeNet_pointclouds/", model_parallel=spec["tp"])
-    runs = [_train_net(spec, device, _config(spec, **kw))]
-    result = {}
-    if spec["resume"] and spec["rank"] == 0:  # the file rank 0 wrote holds whole tensors
-        blob = torch.load(Path(spec["out"], CAT, "checkpoints", f"{CAT}_checkpoint_1.pth.tar"),
-                          map_location="cpu", weights_only=True, mmap=True)
-        index = [n for n, _ in runs[0]["trainer"].model.named_parameters()].index("fc1_1.weight")
-        result["checkpoint_fc1_1_shapes"] = {
-            "weight": list(blob["state_dict"]["fc1_1.weight"].shape),
-            "exp_avg": list(blob["optimizer"]["state"][index]["exp_avg"].shape)}
-        del blob
+    """One epoch; with ``resume`` a second run resumes from the checkpoint
+    the first one's validation wrote (rank 0 loads it and broadcasts) and
+    runs epoch 2."""
+    runs = [_train_net(spec, device, nepoch=1)]
     if spec["resume"]:
-        runs.append(_train_net(spec, device, _config(spec, **{**kw, "nepoch": 2,
-                                                              "resume": True})))
-    result["runs"] = [{k: v for k, v in run.items() if k != "trainer"} for run in runs]
-    trainer = runs[-1]["trainer"]
-    result["fc1_1_shape"] = list(trainer.model.fc1_1.weight.shape)
-    if spec["resume"]:  # the resumed weights, whole, against the checkpoint
-        state, _ = trainer.full_state()
-        result["fc1_1_whole_shape"] = list(state["fc1_1.weight"].shape)
-    return result
-
-
-def case_ring(spec: dict, device: torch.device) -> dict:
-    blob = np.load(spec["inputs"])
-    result = {}
-    for kind in ("dyadic", "normal"):
-        x1, x2, w1, w2 = (torch.as_tensor(blob[f"{kind}.{k}"], device=device)
-                          for k in ("x1", "x2", "w1", "w2"))
-        chamfer_fn = sp.make_sharded_chamfer()
-        a = sp.shard_points(x1).requires_grad_(True)
-        b = sp.shard_points(x2).requires_grad_(True)
-        chamfer_fn(a, b)  # warm-up: the ring's buffers and the kernel's first launch
-        _sync(device)
-        reset_counts()
-        t0 = time.perf_counter()
-        d1, d2, i1, i2 = chamfer_fn(a, b)
-        _sync(device)
-        forward_ms = (time.perf_counter() - t0) * 1e3
-        launches = launch_counts()
-        t0 = time.perf_counter()
-        ((d1 * sp.shard_points(w1)).sum() + (d2 * sp.shard_points(w2)).sum()).backward()
-        _sync(device)
-        backward_ms = (time.perf_counter() - t0) * 1e3
-        torch.save({"d1": d1.detach().cpu(), "d2": d2.detach().cpu(), "i1": i1.cpu(),
-                    "i2": i2.cpu(), "g1": a.grad.cpu(), "g2": b.grad.cpu()},
-                   Path(spec["work"]) / f"ring_{kind}_rank{spec['rank']}.pt")
-        result[kind] = {"forward_ms": forward_ms, "backward_ms": backward_ms,
-                        "launches_forward": launches}
-    result["transport"] = transport(None, device)
-    return result
+        runs.append(_train_net(spec, device, nepoch=2, resume=True))
+    return {"runs": runs}
 
 
 def case_nccl(spec: dict, device: torch.device) -> dict:
@@ -309,8 +258,7 @@ def case_nccl(spec: dict, device: torch.device) -> dict:
             "history": history}
 
 
-CASES = {"step": case_step, "train_net": case_train_net, "ring": case_ring,
-         "nccl": case_nccl}
+CASES = {"step": case_step, "train_net": case_train_net, "nccl": case_nccl}
 
 
 def main(argv=None) -> int:

@@ -82,7 +82,6 @@ class TrainConfig:
     lambda_bce: float = 100.0
     proj_squash: bool = False
 
-    # parallelism: one process a rank, data_parallel x model_parallel ranks
-    # (data_parallel 1: the world size over model_parallel)
+    # data parallelism: one process a rank, data_parallel ranks (1: the
+    # world size)
     data_parallel: int = 1
-    model_parallel: int = 1

@@ -3,11 +3,12 @@
 the newest checkpoint, periodic saves, and validation with a best copy.
 
 On several processes (:mod:`fenet_torch.parallel`) every rank takes rank
-0's seed, the mesh is sized from the world (``data_parallel`` 1 means
-``world / model_parallel``), both datasets are sharded per batch group with
-the local batch size, only rank 0 writes the log, the scalars and the
-checkpoints (the others log warnings only), and a resume loads on rank 0
-and broadcasts. Checkpoints hold whole tensors at any mesh.
+0's seed, the data-parallel mesh is sized from the world (``data_parallel``
+1 means the world size), both datasets are sharded per rank with the local
+batch size, only rank 0 writes the log, the scalars and the checkpoints
+(the others log warnings only), and a resume loads on rank 0 and
+broadcasts. Every rank holds the whole model, so a checkpoint moves between
+runs of any number of ranks.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from fenet_torch.eval.runner import evaluate_dataset
 from fenet_torch.models.generator import Generator, init_random_
 from fenet_torch.parallel.distributed import (
     ProcessShardDataset,
-    batch_process_groups,
     is_primary,
     local_batch_size,
     process_rank,
@@ -171,7 +171,7 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
 
     On several processes every rank calls it with the same arguments (its
     ``model`` on its own device); ``cfg.data_parallel`` is set to the
-    mesh's batch width.
+    mesh's size.
 
     Returns ``{"history", "ckpt_dir", "trainer", "model"}``.
     """
@@ -185,18 +185,17 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
         cfg.manual_seed = broadcast_object(cfg.manual_seed)
     np.random.seed(cfg.manual_seed)
     torch.manual_seed(cfg.manual_seed)
-    mesh = make_mesh(cfg.data_parallel, cfg.model_parallel)
+    mesh = make_mesh(cfg.data_parallel)
     cfg.data_parallel = mesh.dp
 
     if train_ds is None or val_ds is None:
         train_ds, val_ds = _build_datasets(cfg, category)
     batch_size = cfg.batch_size
-    if multi:  # tensor-parallel peers read the same rows: shard per batch group
-        group, n_groups = batch_process_groups(mesh)
-        batch_size = local_batch_size(cfg.batch_size, n_groups)
-        train_ds = ProcessShardDataset(train_ds, group, n_groups)
+    if multi:  # each rank reads its shard
+        batch_size = local_batch_size(cfg.batch_size)
+        train_ds = ProcessShardDataset(train_ds)
         if len(val_ds):
-            val_ds = ProcessShardDataset(val_ds, group, n_groups)
+            val_ds = ProcessShardDataset(val_ds)
     train_loader = DataLoader(train_ds, batch_size, shuffle=True, drop_last=True,
                               seed=cfg.manual_seed)
     val_loader = DataLoader(val_ds, min(batch_size, max(len(val_ds), 1)),
@@ -239,7 +238,7 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
         best_emd = _restored_best(blob, "best_emd_loss", "EMD_distance")
 
     def checkpoint(epoch: int, is_best: bool) -> None:
-        state_dict, optimizer = trainer.full_state()  # a collective under TP
+        state_dict, optimizer = trainer.full_state()
         if not primary:
             return
         # The scalars in fenet's order: a flax checkpoint's sidecar is fenet's.
@@ -282,7 +281,7 @@ def train_net(category, cfg: TrainConfig, train_ds=None, val_ds=None,
 
         if validate:
             cd_m, emd_m, summary = evaluate_dataset(
-                model, val_loader, category=cat, logger=logger, device=device, mesh=mesh,
+                model, val_loader, category=cat, logger=logger, device=device,
                 icp_iterations=cfg.eval_icp_iterations,
                 icp_tolerance=cfg.eval_icp_tolerance,
                 emd_iters=cfg.eval_emd_iters, emd_eps=cfg.eval_emd_eps,

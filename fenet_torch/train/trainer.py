@@ -1,6 +1,6 @@
 """The training step (counterpart of ``fenet/train/trainer.py``) in its two
 loss modes, ``schedule`` (train) and ``finetune``, on one device or on each
-rank of a ``data_parallel × model_parallel`` process mesh.
+rank of a data-parallel process mesh.
 
 Reference semantics kept:
 - ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8, weight_decay)``, L2
@@ -26,14 +26,12 @@ adaptive gate) or, with ``emd_impl="sinkhorn"``, the Sinkhorn loss.
 On a mesh of ranks (:mod:`fenet_torch.parallel`) each rank runs the
 forward, loss and backward of its shard of the batch; then the gradients,
 the three losses and the BatchNorm running statistics are averaged over the
-data-parallel group before Adam, as fenet's ``pmean``s do (the statistics
-even with ``sync_bn`` off). With ``sync_bn`` (the default) the BatchNorms
-normalize with the global batch's statistics, the single-device batch-128
-semantics at any width. Under tensor parallelism the decoder's heads are
-split (:mod:`fenet_torch.parallel.tp`); the parameters every rank holds
-whole are averaged over the whole world, which keeps the tensor-parallel
-peers' copies bit-identical. There is no DDP ``broadcast_buffers``: it
-would copy rank 0's statistics and break ``sync_bn`` off.
+mesh before Adam, as fenet's ``pmean``s do (the statistics even with
+``sync_bn`` off). With ``sync_bn`` (the default) the BatchNorms normalize
+with the global batch's statistics, the single-device batch-128 semantics
+at any width. Every rank holds the whole model. There is no DDP
+``broadcast_buffers``: it would copy rank 0's statistics and break
+``sync_bn`` off.
 """
 
 from __future__ import annotations
@@ -50,7 +48,6 @@ from fenet_torch.losses.projection import get_loss_proj
 from fenet_torch.losses.sinkhorn import sinkhorn_emd_loss
 from fenet_torch.models.repvgg import BatchNorm2d
 from fenet_torch.ops.adam import Adam
-from fenet_torch.parallel import tp
 from fenet_torch.parallel.mesh import Mesh, make_mesh, pmean_
 from fenet_torch.train.config import TrainConfig
 from fenet_torch.utils.average_meter import AverageMeter
@@ -87,11 +84,8 @@ class Trainer:
     a DataLoader with the reference's per-batch log line.
 
     ``mesh`` (default: :func:`fenet_torch.parallel.mesh.make_mesh` of the
-    config's ``data_parallel`` and ``model_parallel``) places this process
-    on the ranks' mesh; every rank must start from the same weights. Under
-    tensor parallelism the model's decoder heads are cut to this rank's
-    blocks here; :meth:`full_state` and :meth:`load_full_state` move whole
-    tensors in and out.
+    config's ``data_parallel``) places this process on the ranks' mesh;
+    every rank must start from the same weights.
     """
 
     def __init__(self, model: nn.Module, config: TrainConfig,
@@ -100,18 +94,16 @@ class Trainer:
             raise ValueError(f"loss_mode must be 'schedule' or 'finetune', got {loss_mode!r}")
         if config.emd_impl not in ("auction", "sinkhorn"):
             raise ValueError(f"emd_impl must be 'auction' or 'sinkhorn', got {config.emd_impl!r}")
-        self.mesh = mesh if mesh is not None else make_mesh(config.data_parallel,
-                                                            config.model_parallel)
+        self.mesh = mesh if mesh is not None else make_mesh(config.data_parallel)
         self.config = config
         self.loss_mode = loss_mode
         self.device = resolve_device(device)
         full_fp32()
         self.model = model.to(self.device)
-        sync = self.mesh.dp_group if config.sync_bn else None
+        sync = self.mesh.group if config.sync_bn else None
         for m in self.model.modules():
             if isinstance(m, BatchNorm2d):
                 m.group = sync
-        tp.shard_model_(self.model, self.mesh)
         self.optimizer = make_optimizer(self.model, config)
 
     def emd(self, pred: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -180,42 +172,29 @@ class Trainer:
 
     def all_reduce_(self, stats: Dict[str, torch.Tensor]) -> None:
         """Average the step's gradients, its losses (``stats``, in place)
-        and the BatchNorm running statistics over the mesh: what every rank
-        holds whole over all ranks (tensor-parallel peers hold the same
-        values), each rank's Megatron blocks over its data-parallel group.
-        Nothing on one process."""
-        mesh = self.mesh
-        if mesh.size == 1:
+        and the BatchNorm running statistics over the mesh, in one
+        all-reduce. Nothing on one process."""
+        group = self.mesh.group
+        if group is None:
             return
-        whole, blocks = [], []
-        for name, param in self.model.named_parameters():
-            (blocks if name in tp.RULES and mesh.tp > 1 else whole).append(param.grad)
-        whole += list(stats.values())
-        whole += [buf for name, buf in self.model.named_buffers()
-                  if name.endswith(("running_mean", "running_var"))]
-        pmean_(whole, mesh.world_group)
-        pmean_(blocks, mesh.dp_group)
+        pmean_([param.grad for param in self.model.parameters()] + list(stats.values())
+               + [buf for name, buf in self.model.named_buffers()
+                  if name.endswith(("running_mean", "running_var"))], group)
 
     def full_state(self) -> Tuple[Dict[str, torch.Tensor], Dict]:
-        """(model state_dict, optimizer state_dict) with every tensor whole,
-        as a one-process run holds them: what a checkpoint stores. Under
-        tensor parallelism a collective of the tensor-parallel group."""
-        return (tp.full_state_dict(self.model, self.mesh),
-                tp.full_optimizer_state(self.optimizer.state_dict(), self.model, self.mesh))
+        """(model state_dict, optimizer state_dict): what a checkpoint
+        stores."""
+        return self.model.state_dict(), self.optimizer.state_dict()
 
     def load_full_state(self, state_dict: Dict[str, torch.Tensor], optimizer: Dict) -> None:
-        """Load whole tensors (a checkpoint's), cut to this rank's blocks
-        under tensor parallelism; the model loads with ``strict=True``."""
-        mesh = self.mesh
-        self.model.load_state_dict(tp.shard_state_dict(state_dict, mesh.tp, mesh.tp_index)
-                                   if mesh.tp > 1 else state_dict, strict=True)
+        """Load a checkpoint's tensors; the model loads with ``strict=True``."""
+        self.model.load_state_dict(state_dict, strict=True)
         # A hyperparameter the checkpoint's groups lack keeps this optimizer's
         # value (fenet's flax container stores none: its groups hold only
         # their params).
         own = self.optimizer.state_dict()["param_groups"]
-        optimizer = {**optimizer, "param_groups": [
-            {**group, **saved} for group, saved in zip(own, optimizer["param_groups"])]}
-        self.optimizer.load_state_dict(tp.shard_optimizer_state(optimizer, self.model, mesh))
+        self.optimizer.load_state_dict({**optimizer, "param_groups": [
+            {**group, **saved} for group, saved in zip(own, optimizer["param_groups"])]})
 
     def fit_epoch(self, dataloader, epoch: int, logger=None, metric_writer=None,
                   category: str = "") -> Dict[str, float]:

@@ -1,22 +1,20 @@
 """fenet_torch.parallel on the CPU, in real multi-process gloo runs, against
 fenet's parallel training and against the port's own one-process step.
 
-- ``ProcessShardDataset``, ``local_batch_size`` and ``batch_process_groups``
-  against fenet's on the same sizes (more processes than samples, padding,
-  ``load_batch`` through the index map).
+- ``ProcessShardDataset`` and ``local_batch_size`` against fenet's on the
+  same sizes (more processes than samples, padding, ``load_batch`` through
+  the index map).
 - One train step of ``RepVGG-TEST`` (fine_width 32) at a global batch of 4:
-  in 2 data-parallel ranks with sync-BN, against fenet's dp=2 step (on the
-  virtual CPU devices of ``tests/conftest.py``) and against the port's
-  one-process step at the global batch; with ``sync_bn`` off against fenet's
-  dp=2 step; in 2 tensor-parallel ranks and in a 2×2 dp×tp mesh of 4 ranks
-  against the one-process step. The ranks replay the auction assignments
-  fenet's auction made on fenet's predictions (predictions ~1e-7 apart can
-  resolve a near-tie the other way, ROADMAP Queue 3).
+  in 2 and in 4 data-parallel ranks with sync-BN, against fenet's step at
+  the same dp (on the virtual CPU devices of ``tests/conftest.py``) and
+  against the port's one-process step at the global batch; with ``sync_bn``
+  off in 2 ranks against fenet's dp=2 step. The ranks replay the auction
+  assignments fenet's auction made on fenet's predictions (predictions
+  ~1e-7 apart can resolve a near-tie the other way, ROADMAP Queue 3).
 - ``train_net`` in 2 ranks: rank 0's seed on both, files written by rank 0
-  only, a resume that rank 0 loads and broadcasts, a tensor-parallel
-  checkpoint that holds whole tensors (loaded with ``strict=True`` by a
-  one-process run, whose checkpoint the tensor-parallel run resumes in
-  turn), and validation summaries without the shards' duplicates.
+  only, a resume that rank 0 loads and broadcasts, a checkpoint that moves
+  between 2 ranks and one process both ways (loaded with ``strict=True``),
+  and validation summaries without the shards' duplicates.
 - The train and eval_shapenet CLIs in 2 ranks that join through fenet's
   environment variables: rank 0's log, and the sum of the eval shards
   against the one-process CLI.
@@ -74,15 +72,14 @@ def _child_step(spec: dict) -> None:
     from fenet_torch.models.generator import Generator
     from fenet_torch.ops import emd
     from fenet_torch.ops.pairwise import sqnorm
-    from fenet_torch.parallel import tp
     from fenet_torch.train.config import TrainConfig
     from fenet_torch.train.trainer import Trainer
 
     _join(spec)
     blob = np.load(spec["inputs"])
-    dp, tp_size = spec["dp"], spec["tp"]
+    dp = spec["dp"]
     local = GLOBAL_BATCH // dp
-    rows = slice(spec["rank"] // tp_size * local, (spec["rank"] // tp_size + 1) * local)
+    rows = slice(spec["rank"] * local, (spec["rank"] + 1) * local)
     recorded = torch.tensor(blob["assignments"][rows], dtype=torch.int32)
 
     def replay(x1, x2, *args):
@@ -94,23 +91,15 @@ def _child_step(spec: dict) -> None:
     gen.load_state_dict({k[3:]: torch.tensor(blob[k]) for k in blob.files
                          if k.startswith("sd.")}, strict=True)
     cfg = TrainConfig(batch_size=GLOBAL_BATCH, num_points=N_POINTS, emd_iters=EMD_ITERS,
-                      data_parallel=dp, model_parallel=tp_size, sync_bn=spec["sync_bn"],
-                      **SMALL)
+                      data_parallel=dp, sync_bn=spec["sync_bn"], **SMALL)
     trainer = Trainer(gen, cfg, device="cpu")
     stats = trainer.train_step(blob["imgs"][rows], blob["pts"][rows], 1, float(blob["lr"]))
-    grads = {}
-    for name, param in gen.named_parameters():
-        if name in GRAD_KEYS:
-            grad = param.grad
-            if name in tp.RULES and tp_size > 1:
-                grad = tp._gather(grad, tp.RULES[name], trainer.mesh)
-            grads[name] = grad.numpy()
+    params = dict(gen.named_parameters())
     state, _ = trainer.full_state()
     np.savez(Path(spec["out"]) / f"rank{spec['rank']}.npz",
              losses=np.asarray([float(stats[k]) for k in LOSS_KEYS]),
-             **{f"grad.{k}": v for k, v in grads.items()},
-             **{f"stat.{k}": state[k].numpy() for k in STAT_KEYS},
-             fc1_1_after=state["fc1_1.weight"].numpy())
+             **{f"grad.{k}": params[k].grad.numpy() for k in GRAD_KEYS},
+             **{f"stat.{k}": state[k].numpy() for k in STAT_KEYS})
 
 
 class _First:
@@ -139,8 +128,7 @@ def _child_train_net(spec: dict) -> None:
     cfg = TrainConfig(batch_size=8, num_points=N_POINTS, nepoch=spec["nepoch"],
                       validate_epochs=tuple(spec["validate"]), train_save_freq=0,
                       emd_iters=20, eval_icp_iterations=8, eval_emd_iters=10,
-                      dir_path=spec["dirs"][spec["rank"]], resume=spec["resume"],
-                      model_parallel=spec["tp"], **SMALL)
+                      dir_path=spec["dirs"][spec["rank"]], resume=spec["resume"], **SMALL)
     train_ds = SyntheticShapeNet(n_models=1, num_points=N_POINTS, variety=True, seed=0)
     val_ds = _First(SyntheticShapeNet(n_models=1, num_points=N_POINTS, seed=1), spec["val"])
     out = train_net(CAT, cfg, train_ds, val_ds, device="cpu")
@@ -242,32 +230,15 @@ def test_local_batch_size_matches_fenet():
     assert distributed.local_batch_size(128) == 128  # one process
 
 
-@pytest.mark.parametrize("dp,tp", [(2, 1), (1, 2), (2, 2), (4, 2), (2, 4)])
-def test_batch_process_groups_match_fenet(dp, tp, monkeypatch):
-    """One process a device on a (batch, model) mesh of dp × tp processes:
-    fenet reads the groups off its mesh's devices, the port off its ranks."""
-    from types import SimpleNamespace
-
-    devices = np.empty((dp, tp), dtype=object)
-    for d in range(dp):
-        for t in range(tp):
-            devices[d, t] = SimpleNamespace(process_index=d * tp + t)
-    jax_mesh = SimpleNamespace(axis_names=("batch", "model"), devices=devices)
-    for rank in range(dp * tp):
-        monkeypatch.setattr(jax, "process_index", lambda rank=rank: rank)
-        assert (distributed.batch_process_groups(Mesh(dp, tp, rank))
-                == jax_distributed.batch_process_groups(jax_mesh))
-
-
 def test_one_process_mesh_and_launch_errors():
     from fenet_torch.parallel.mesh import make_mesh
 
-    assert make_mesh() == Mesh() and make_mesh(1, 1).size == 1
+    assert make_mesh() == make_mesh(1) == Mesh() and Mesh().group is None
     assert distributed.is_primary() and distributed.world_size() == 1
     assert not distributed.initialize()  # no coordinator in the environment
-    for dp, tp in ((2, 1), (1, 2), (2, 2)):
+    for dp in (2, 4):
         with pytest.raises(ValueError, match="launch one process per rank"):
-            make_mesh(dp, tp)
+            make_mesh(dp)
     ds = _Items(3)
     assert distributed.shard_for_process(ds) is ds
 
@@ -314,14 +285,14 @@ def _inputs(tmp_path, state_dict, imgs, pts, assignments):
     return str(path)
 
 
-def _port_step(tmp_path, inputs, dp, tp, sync_bn=True):
-    """The port's step in dp × tp ranks: each rank's npz, checked to hold
-    the same gradients and statistics bit for bit."""
-    out = tmp_path / f"out_{dp}x{tp}_{int(sync_bn)}"
+def _port_step(tmp_path, inputs, dp, sync_bn=True):
+    """The port's step in dp ranks: each rank's npz, checked to hold the
+    same gradients and statistics bit for bit."""
+    out = tmp_path / f"out_{dp}_{int(sync_bn)}"
     out.mkdir()
-    _run_ranks("step", {"inputs": inputs, "out": str(out), "dp": dp, "tp": tp,
-                        "sync_bn": sync_bn}, dp * tp, tmp_path)
-    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(dp * tp)]
+    _run_ranks("step", {"inputs": inputs, "out": str(out), "dp": dp, "sync_bn": sync_bn},
+               dp, tmp_path)
+    ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(dp)]
     for other in ranks[1:]:
         for key in ranks[0]:
             np.testing.assert_array_equal(other[key], ranks[0][key], err_msg=key)
@@ -347,7 +318,7 @@ def global_batch(step_inputs, tmp_path_factory):
     model, variables, state_dict, imgs, pts = step_inputs
     root = tmp_path_factory.mktemp("global_batch")
     inputs = _inputs(root, state_dict, imgs, pts, _record(model, variables, imgs, pts, 1))
-    yield inputs, _port_step(root, inputs, 1, 1)
+    yield inputs, _port_step(root, inputs, 1)
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -364,29 +335,34 @@ def _assert_stats_close(got, want, rtol, stage0_rtol):
 
 
 # The port's multi-rank step against its one-process step: measured ≤ 3.7e-6
-# relative L2 on every compared gradient (the backbone's first convolution),
-# losses within 1e-7. Against fenet's: ≤ 3.8e-6, and fenet's dp=2 gradient
-# is ≤ 6.9e-6 off its own dp=1 one (float noise, no factor). Running
+# (dp=2) and 4.2e-6 (dp=4) relative L2 on every compared gradient (the
+# backbone's first convolution), losses within 1.1e-7. Against fenet's: ≤
+# 3.8e-6, and fenet's dp=2 and dp=4 gradients are ≤ 6.9e-6 and 7.9e-6 off its
+# own dp=1 one (float noise, no factor). Running
 # statistics against fenet's: as tests/test_torch_train.py (stage 0 5e-5,
 # fenet's own float32 E[x²] − E[x]² error).
 GRAD_RTOL = 1e-4
 STAT_RTOL, STAGE0_STAT_RTOL = 1e-6, 5e-5
 
 
+@pytest.mark.parametrize("dp", [2, 4], ids=["dp2", "dp4"])
 def test_dp_step_with_sync_bn_matches_fenet_and_one_process(step_inputs, global_batch,
-                                                             tmp_path, monkeypatch):
+                                                             tmp_path, monkeypatch, dp):
+    """dp ranks (at dp=4 one row each), normalized with the global batch's
+    statistics by sync-BN: fenet's dp step's and the one-process step's
+    losses, gradients and statistics."""
     model, variables, _, imgs, pts = step_inputs
     inputs, one = global_batch
-    two = _port_step(tmp_path, inputs, 2, 1)
-    fenet_losses, fenet = _fenet_grads(model, variables, imgs, pts, 2, True, monkeypatch)
+    got = _port_step(tmp_path, inputs, dp)
+    fenet_losses, fenet = _fenet_grads(model, variables, imgs, pts, dp, True, monkeypatch)
     _, fenet_one = _fenet_grads(model, variables, imgs, pts, 1, True, monkeypatch)
-    np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-6)
-    np.testing.assert_allclose(two["losses"], fenet_losses, rtol=1e-4)
-    _assert_grads_close(two, one, GRAD_RTOL)
-    _assert_grads_close(two, fenet, GRAD_RTOL)
-    _assert_grads_close(fenet, fenet_one, GRAD_RTOL)  # fenet's dp=2 is its dp=1
-    _assert_stats_close(two, one, STAT_RTOL, STAT_RTOL)
-    _assert_stats_close(two, fenet, STAT_RTOL, STAGE0_STAT_RTOL)
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-6)
+    np.testing.assert_allclose(got["losses"], fenet_losses, rtol=1e-4)
+    _assert_grads_close(got, one, GRAD_RTOL)
+    _assert_grads_close(got, fenet, GRAD_RTOL)
+    _assert_grads_close(fenet, fenet_one, GRAD_RTOL)  # fenet's dp step is its dp=1 one
+    _assert_stats_close(got, one, STAT_RTOL, STAT_RTOL)
+    _assert_stats_close(got, fenet, STAT_RTOL, STAGE0_STAT_RTOL)
 
 
 def test_dp_step_without_sync_bn_matches_fenet(step_inputs, tmp_path, monkeypatch):
@@ -394,32 +370,11 @@ def test_dp_step_without_sync_bn_matches_fenet(step_inputs, tmp_path, monkeypatc
     still averaged over the ranks, as fenet's pmean does."""
     model, variables, state_dict, imgs, pts = step_inputs
     inputs = _inputs(tmp_path, state_dict, imgs, pts, _record(model, variables, imgs, pts, 2))
-    two = _port_step(tmp_path, inputs, 2, 1, sync_bn=False)
+    two = _port_step(tmp_path, inputs, 2, sync_bn=False)
     fenet_losses, fenet = _fenet_grads(model, variables, imgs, pts, 2, False, monkeypatch)
     np.testing.assert_allclose(two["losses"], fenet_losses, rtol=1e-4)
     _assert_grads_close(two, fenet, GRAD_RTOL)
     _assert_stats_close(two, fenet, STAT_RTOL, STAGE0_STAT_RTOL)
-
-
-@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)], ids=["tp2", "dp2xtp2"])
-def test_tensor_parallel_step_matches_one_process(global_batch, tmp_path, dp, tp):
-    """The decoder's heads split over tp ranks (in a 2×2 mesh with sync-BN
-    over each column too): the same losses, gradients (the split ones
-    gathered whole) and statistics as the one-process step."""
-    inputs, one = global_batch
-    got = _port_step(tmp_path, inputs, dp, tp)
-    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-6)
-    _assert_grads_close(got, one, GRAD_RTOL)
-    _assert_stats_close(got, one, STAT_RTOL, STAT_RTOL)
-    # The split parameter after Adam's first step, gathered. That step moves
-    # each weight by ~lr·g/|g|, so where a gradient element is ~1e-7 from
-    # 0 the two reduction orders can move it differently (as
-    # tests/test_tp.py allows, with its bounds: measured 8 of 8.4M elements
-    # more than 2e-6 apart, none more than 3.6e-6): a layout fault (a
-    # transposed or misplaced block) would move most.
-    diff = np.abs(got["fc1_1_after"] - one["fc1_1_after"])
-    assert np.mean(diff > 2e-5 + 2e-4 * np.abs(one["fc1_1_after"])) < 1e-4
-    assert diff.max() < 2 * 5e-4
 
 
 # -- train_net ---------------------------------------------------------------
@@ -435,7 +390,7 @@ def test_train_net_in_two_data_parallel_ranks(tmp_path):
     (shards of 3, one a duplicate) reads 5. The resume loads on rank 0 and
     broadcasts: rank 1's dir_path holds no checkpoint."""
     dirs = [str(tmp_path / "rank0"), str(tmp_path / "rank1")]
-    spec = {"tp": 1, "dirs": dirs, "val": 5}
+    spec = {"dirs": dirs, "val": 5}
     first = _results(_run_ranks("train_net", {**spec, "nepoch": 1, "validate": [1],
                                               "resume": False}, 2, tmp_path))
     assert first[0]["seed"] == first[1]["seed"] and first[0]["dp"] == first[1]["dp"] == 2
@@ -460,19 +415,19 @@ def test_train_net_in_two_data_parallel_ranks(tmp_path):
     assert blob["epoch"] == 2 and int(blob["optimizer"]["state"][0]["step"]) == 6
 
 
-def test_train_net_tensor_parallel_checkpoints_hold_whole_tensors(tmp_path):
-    """A tp=2 run's checkpoint holds whole parameters and Adam moments and
-    loads into a one-process model with strict=True; a one-process run
-    resumes from it, and a tp=2 run from that one's. Its validation of 6
-    samples, evaluated by both peers, reads 6."""
+def test_train_net_checkpoint_moves_between_one_and_two_ranks(tmp_path):
+    """A checkpoint of 2 data-parallel ranks loads into a one-process model
+    with strict=True, its Adam moments at the parameters' shapes; a
+    one-process run resumes from it, and 2 ranks from that one's, Adam's
+    step count carried across. Each validation of 6 samples reads 6."""
     from fenet_torch.models.generator import Generator
 
     out = str(tmp_path / "out")
     spec = {"dirs": [out, out], "val": 6}
-    tp_run = _results(_run_ranks("train_net", {**spec, "tp": 2, "nepoch": 1, "validate": [1],
-                                               "resume": False}, 2, tmp_path))
-    assert tp_run[0] == tp_run[1] and tp_run[0]["dp"] == 1
-    assert tp_run[0]["history"][0]["val"]["samples"] == 6
+    two = _results(_run_ranks("train_net", {**spec, "nepoch": 1, "validate": [1],
+                                            "resume": False}, 2, tmp_path))
+    assert two[0] == two[1] and two[0]["dp"] == 2
+    assert two[0]["history"][0]["val"]["samples"] == 6
     ckpt = Path(out, CAT, "checkpoints")
     blob = torch.load(ckpt / "model_best.pth.tar", weights_only=True)
     gen = Generator(num_points=N_POINTS, **SMALL)
@@ -481,17 +436,19 @@ def test_train_net_tensor_parallel_checkpoints_hold_whole_tensors(tmp_path):
     for name, param in gen.named_parameters():
         moments = blob["optimizer"]["state"][names.index(name)]
         assert moments["exp_avg"].shape == moments["exp_avg_sq"].shape == param.shape, name
-    assert float(blob["state_dict"]["fc1_1.weight"].double().sum()) == tp_run[0]["fc1_1"]
+    assert float(blob["state_dict"]["fc1_1.weight"].double().sum()) == two[0]["fc1_1"]
 
-    one = _results(_run_ranks("train_net", {**spec, "tp": 1, "nepoch": 2, "validate": [2],
+    one = _results(_run_ranks("train_net", {**spec, "nepoch": 2, "validate": [2],
                                             "resume": True}, 1, tmp_path))
-    assert [h["epoch"] for h in one[0]["history"]] == [2]
-    back = _results(_run_ranks("train_net", {**spec, "tp": 2, "nepoch": 3, "validate": [3],
+    assert [h["epoch"] for h in one[0]["history"]] == [2] and one[0]["dp"] == 1
+    assert one[0]["history"][0]["val"]["samples"] == 6
+    back = _results(_run_ranks("train_net", {**spec, "nepoch": 3, "validate": [3],
                                              "resume": True}, 2, tmp_path))
     assert back[0] == back[1] and [h["epoch"] for h in back[0]["history"]] == [3]
     assert back[0]["history"][0]["val"]["samples"] == 6
     blob = torch.load(ckpt / f"{CAT}_checkpoint_3.pth.tar", weights_only=True)
     Generator(num_points=N_POINTS, **SMALL).load_state_dict(blob["state_dict"], strict=True)
+    assert int(blob["optimizer"]["state"][0]["step"]) == 9  # 3 steps an epoch
 
 
 def test_train_cli_in_two_ranks_from_the_environment(tmp_path):

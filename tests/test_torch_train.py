@@ -42,6 +42,9 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 SMALL = dict(backbone="RepVGG-TEST", fine_width=32, mid_width=16)
 N_POINTS, BATCH, STEPS = 256, 2, 3
+# fenet's config fields and flags that the port lacks: its ranks are data
+# parallel only (the model fits one card), so it has no tensor parallelism.
+FENET_ONLY = {"model_parallel"}
 # TrainConfig overrides of the three EMD modes.
 EMD_MODES = {
     "auction": dict(emd_iters=300),
@@ -266,12 +269,13 @@ def test_train_steps_match_fenet(mode, num_points, tmp_path):
 
 
 def test_train_config_matches_fenet():
-    """The same fields with the same defaults; the checkpoint container is
-    the one deliberate difference (the port defaults to the reference's
-    .pth.tar and writes fenet's flax .ckpt on request)."""
+    """The same fields with the same defaults, with two deliberate
+    differences: the checkpoint container (the port defaults to the
+    reference's .pth.tar and writes fenet's flax .ckpt on request), and
+    FENET_ONLY, which the port lacks."""
     ours = {f.name: f.default for f in dataclasses.fields(TrainConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxTrainConfig)}
-    assert ours.keys() == theirs.keys()
+    assert ours.keys() == theirs.keys() - FENET_ONLY
     assert {k for k in ours if ours[k] != theirs[k]} == {"ckpt_format"}
     assert ours["ckpt_format"] == "torch"
     for epoch in range(1, 51):
@@ -284,18 +288,20 @@ def test_cli_flags_match_fenet():
     ours = common.add_common_args(argparse.ArgumentParser()).parse_args([])
     theirs = jax_common.add_common_args(argparse.ArgumentParser()).parse_args([])
     assert set(vars(ours)) - set(vars(theirs)) == {"device"}
-    assert set(vars(theirs)) <= set(vars(ours))
+    assert set(vars(theirs)) - set(vars(ours)) == FENET_ONLY
     mine, ref = common.config_from_args(ours), jax_common.config_from_args(theirs)
     diff = {f.name for f in dataclasses.fields(mine)
             if getattr(mine, f.name) != getattr(ref, f.name)}
     assert diff == {"ckpt_format"}
     # The finetune and eval_pix3d CLIs: fenet's flags and defaults, plus
-    # --device (and the checkpoint container's default, as above).
-    for ours, theirs, differ in ((finetune.main, jax_finetune.main, {"ckpt_format"}),
-                                 (eval_pix3d.main, jax_eval_pix3d.main, set())):
+    # --device (and the checkpoint container's default and FENET_ONLY, as
+    # above).
+    for ours, theirs, differ, lacks in (
+            (finetune.main, jax_finetune.main, {"ckpt_format"}, FENET_ONLY),
+            (eval_pix3d.main, jax_eval_pix3d.main, set(), set())):
         ours, theirs = _cli_defaults(ours), _cli_defaults(theirs)
-        assert set(ours) - set(theirs) == {"device"} and set(theirs) <= set(ours)
-        assert {k for k in theirs if ours[k] != theirs[k]} == differ
+        assert set(ours) - set(theirs) == {"device"} and set(theirs) - set(ours) == lacks
+        assert {k for k in theirs.keys() - lacks if ours[k] != theirs[k]} == differ
     assert _cli_defaults(finetune.main)["nepoch"] == 10
 
 
@@ -336,9 +342,8 @@ def test_options_of_later_slices_raise(tmp_path, monkeypatch):
     gen = Generator(num_points=N_POINTS, **SMALL)
     with pytest.raises(ValueError, match="loss_mode"):
         Trainer(gen, TrainConfig(), loss_mode="pretrain", device="cpu")
-    for field in ("data_parallel", "model_parallel"):  # one process is one rank
-        with pytest.raises(ValueError, match="launch one process per rank"):
-            Trainer(gen, TrainConfig(**{field: 2}), device="cpu")
+    with pytest.raises(ValueError, match="launch one process per rank"):
+        Trainer(gen, TrainConfig(data_parallel=2), device="cpu")  # one process is one rank
     with pytest.raises(ValueError, match="emd_impl"):
         Trainer(gen, TrainConfig(emd_impl="exact"), device="cpu")
     # A container neither fenet nor the port has raises, before anything
