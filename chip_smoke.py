@@ -216,10 +216,20 @@ prints one JSON line; any failure raises, and the script exits non-zero.
    holding, each arm's kernel launched (K3 in the strict, adaptive and
    auction arms, K5 in the adaptive one, K6 in the Sinkhorn one), both arms
    of a tool at the same step-0 chamfer loss (rtol 1e-6).
-16. d2se: the generator on RepVGG-D2se (48 blocks, each with a
-   squeeze-and-excite gate) at 1024 points, one train step at batch 8
+16. d2se: the gate (ops/se_gate.py) at each of D2se's five gate shapes at
+   batch 128 (D2SE_GATE_SHAPES): the backward's kernels (csrc/se_gate.cu)
+   against the plain formulas (the five gradients within GATE_REL_LIMIT of
+   each one's largest), the same bits on a second call, BACKWARD_LAUNCHES
+   launches counted a backward and none a forward, the device operations a
+   call of each direction and of the eager gate's under the profiler (over
+   GATE_PROFILED calls), and each direction's device ms beside its bytes at
+   PEAK_BYTES_PER_S and beside the eager gate's ms (the forward is PyTorch's
+   operations with no autograd recording; eager's records). Then the
+   generator on RepVGG-D2se (48 blocks, each with a squeeze-and-excite gate)
+   at 1024 points, one train step at batch 8
    after a warm-up step: by CUDA events with no profiler, the gates'
-   counter (``repvgg.se_work``) unmoved; under a profiler, 48 gate
+   counter (``repvgg.se_work``) unmoved and the gate's kernels launched 48 x
+   BACKWARD_LAUNCHES times; under a profiler, 48 gate
    forwards and 48 backwards counted, their device ms (positive) beside
    the step's, finite losses; the Adam pass one launch a step over every
    parameter element with a gradient.
@@ -293,6 +303,16 @@ MODEL = dict(backbone="RepVGG-A2", fine_width=512, mid_width=128)
 D2SE_MODEL = dict(MODEL, backbone="RepVGG-D2se")
 D2SE_BATCH = 8
 D2SE_GATES = 48  # one squeeze-and-excite gate a block, stage 0 included
+# The gates' (channels, h = w) at 128x128 images, each at TRAIN_BATCH: stage
+# 0, then stages 1 to 4 (8, 14, 24 and 1 gates). Passes over x's bytes the
+# gate needs forward (x twice, y once) and backward (dy twice, x once, dx
+# once). The backward's kernels sum in another order than the plain
+# formulas, over up to 4096 terms: each gradient within GATE_REL_LIMIT of its
+# largest element.
+D2SE_GATE_SHAPES = ((64, 64), (160, 32), (320, 16), (640, 8), (2560, 4))
+GATE_PASSES = {"forward": 3, "backward": 4}
+GATE_REL_LIMIT = 1e-5
+GATE_PROFILED = 5
 # The adam phase: the parameter sets of the train cells' generators at 1024
 # points; the bytes one Adam pass must move a parameter (p, g, m, v read; p,
 # m, v written); the steps held against torch's foreach Adam; the GPU cycles
@@ -542,8 +562,9 @@ def plan_launches() -> dict:
 
 
 def reset_counts() -> None:
-    from fenet_torch.ops import adam, chamfer, emd, sinkhorn
+    from fenet_torch.ops import adam, chamfer, emd, se_gate, sinkhorn
 
+    se_gate.se_gate_kernel.launches = 0
     adam.adam_kernel.launches = 0
     adam.adam_kernel.elements = 0
     chamfer.nn_kernel.launches = 0
@@ -926,6 +947,91 @@ def phase_plan(device) -> dict:
     return out
 
 
+def gate_rows(device) -> list:
+    """The gate at each of D2SE_GATE_SHAPES (module docstring, phase d2se):
+    seeded normal x and dy, the weights at nn.Linear's scale."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fenet_torch.ops.se_gate import (BACKWARD_LAUNCHES, gate_backward_plain, gate_forward,
+                                         se_gate_kernel)
+
+    def operations(fn) -> float:
+        """Device operations a call under the profiler, over GATE_PROFILED
+        calls (a single call's window has lost events to the profiler)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(GATE_PROFILED):
+                fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / GATE_PROFILED
+
+    def launches(fn) -> int:
+        before = se_gate_kernel.launches
+        fn()
+        return se_gate_kernel.launches - before
+
+    rows = []
+    for c, side in D2SE_GATE_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(c)
+        r = c // 16
+        x, dy = (torch.randn(TRAIN_BATCH, c, side, side, device=device, generator=gen)
+                 for _ in range(2))
+        weights = (torch.randn(r, c, device=device, generator=gen) * c ** -0.5,
+                   torch.randn(r, device=device, generator=gen) * c ** -0.5,
+                   torch.randn(c, r, device=device, generator=gen) * r ** -0.5,
+                   torch.randn(c, device=device, generator=gen) * r ** -0.5)
+        wd, wu = weights[0], weights[2]
+
+        def forward():
+            with torch.no_grad():
+                return gate_forward(x, *weights)
+
+        _, *saved = forward()
+
+        def backward():
+            return se_gate_kernel(dy, x, *saved, wd, wu)
+
+        got, again = backward(), backward()
+        want = gate_backward_plain(dy, x, *saved, wd, wu)
+        names = ("x", "down.weight", "down.bias", "up.weight", "up.bias")
+        gaps = {n: float((g - w).abs().max() / w.abs().max())
+                for n, g, w in zip(names, got, want)}
+        leaves = [t.clone().requires_grad_(True) for t in (x, *weights)]
+        eager_y = gate_forward(*leaves)[0]
+
+        def eager_forward():
+            return gate_forward(*leaves)
+
+        def eager_backward():
+            return torch.autograd.grad(eager_y, leaves, dy, retain_graph=True)
+
+        nbytes = x.numel() * 4
+        row = {"C": c, "hw": side * side, "batch": TRAIN_BATCH, "x_bytes": nbytes,
+               "max_rel_gap": gaps, "repeats_bit_for_bit": all(
+                   torch.equal(a, b) for a, b in zip(got, again)),
+               "launches": {"forward": launches(forward), "backward": launches(backward)},
+               "operations": {"forward": operations(forward), "backward": operations(backward),
+                              "eager_forward": operations(eager_forward),
+                              "eager_backward": operations(eager_backward)}}
+        for way, fn, eager in (("forward", forward, eager_forward),
+                               ("backward", backward, eager_backward)):
+            row[f"{way}_ms"] = device_ms(fn, 20)
+            row[f"{way}_bound_ms"] = GATE_PASSES[way] * nbytes / PEAK_BYTES_PER_S * 1e3
+            row[f"eager_{way}_ms"] = device_ms(eager, 20)
+        rows.append(row)
+        if (max(gaps.values()) > GATE_REL_LIMIT or not row["repeats_bit_for_bit"]
+                or row["launches"] != {"forward": 0, "backward": BACKWARD_LAUNCHES}):
+            emit({"phase": "d2se", "gates": rows})
+            raise AssertionError(f"d2se: the gate's kernels at C={c}, {side}x{side}: gaps "
+                                 f"{gaps} (limit {GATE_REL_LIMIT}), bit-repeat "
+                                 f"{row['repeats_bit_for_bit']}, launches {row['launches']}")
+        del x, dy, weights, saved, got, again, want, leaves, eager_y
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_d2se(device) -> dict:
     """One RepVGG-D2se train step on the card (``D2SE_MODEL`` at 1024
     points, batch ``D2SE_BATCH``, from the unscaled init) after a warm-up
@@ -940,9 +1046,11 @@ def phase_d2se(device) -> dict:
 
     from fenet_torch.models.generator import Generator, init_random_
     from fenet_torch.models.repvgg import se_work
+    from fenet_torch.ops.se_gate import BACKWARD_LAUNCHES, se_gate_kernel
     from fenet_torch.train.config import TrainConfig
     from fenet_torch.train.trainer import Trainer
 
+    gates_rows = gate_rows(device)
     with torch.device(device):
         gen = Generator(num_points=N_POINTS, **D2SE_MODEL)
     init_random_(gen, torch.Generator(device=device).manual_seed(0))
@@ -964,6 +1072,10 @@ def phase_d2se(device) -> dict:
     if se_work(device) != before:
         raise AssertionError(f"d2se: the gates counted with no profiler: {before} -> "
                              f"{se_work(device)}")
+    gate_launches = se_gate_kernel.launches
+    if gate_launches != D2SE_GATES * BACKWARD_LAUNCHES:
+        raise AssertionError(f"d2se: one step launched the gate's kernels {gate_launches} "
+                             f"times, not {D2SE_GATES} x {BACKWARD_LAUNCHES}")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -977,6 +1089,7 @@ def phase_d2se(device) -> dict:
     adam_launches = adam_counts(trainer, 2, "d2se")
     out = {"phase": "d2se", "model": f"Generator({D2SE_MODEL['backbone']}, num_points="
                                      f"{N_POINTS})", "batch": D2SE_BATCH,
+           "gates": gates_rows, "gate_kernel_launches_a_step": gate_launches,
            "step_ms": step_ms, "profiled_step_ms": profiled_ms,
            "gate_calls": gates["calls"], "gate_backward_calls": gates["backward_calls"],
            "gate_ms": gates["ms"], "gate_share_of_profiled_step": gates["ms"] / profiled_ms,

@@ -21,6 +21,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from fenet_torch.ops.se_gate import se_gate
 from fenet_torch.parallel.mesh import all_reduce_sum
 from fenet_torch.utils.profiling import recording, span
 
@@ -94,7 +95,10 @@ def global_batch_stats(x: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tens
 
 class SEBlock(nn.Module):
     """Squeeze-and-excite gate: x (B, C, h, w) scaled channel by channel by
-    sigmoid(up(relu(down(mean over h, w of x)))).
+    sigmoid(up(relu(down(mean over h, w of x)))), through
+    :func:`fenet_torch.ops.se_gate.se_gate` (PyTorch's operations forward;
+    backward its CUDA kernels on the card, its plain formulas on the CPU);
+    ``down`` and ``up`` stay ``nn.Linear``.
 
     While a profiler records (:func:`recording`) each call is a
     ``fenet_torch.model.se`` span and is counted in :func:`se_work`;
@@ -113,9 +117,7 @@ class SEBlock(nn.Module):
             return _counted(self._gate, x)
 
     def _gate(self, x: torch.Tensor) -> torch.Tensor:
-        w = x.mean(dim=(2, 3))
-        w = torch.sigmoid(self.up(torch.relu(self.down(w))))
-        return x * w[:, :, None, None]
+        return se_gate(x, self.down.weight, self.down.bias, self.up.weight, self.up.bias)
 
 
 class _GateWork:

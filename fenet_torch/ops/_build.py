@@ -34,6 +34,7 @@ SOURCES = {
     "sinkhorn": "sinkhorn.cu",
     "sinkhorn_plan": "sinkhorn_plan.cu",
     "adam": "adam.cu",
+    "se_gate": "se_gate.cu",
 }
 
 # No --use_fast_math: the chamfer and auction kernels' arithmetic must be
@@ -65,6 +66,11 @@ SIGNATURES = {
         "fenet_sinkhorn_plan_cols": ([_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 3 + [_PTR], _INT),
     },
     "adam": {"fenet_adam": ([_PTR] * 4 + [_INT] + [_FLOAT] * 5 + [_PTR], _INT)},
+    "se_gate": {
+        "fenet_se_squeeze": ([_PTR] * 3 + [_INT] * 2 + [_PTR], _INT),
+        "fenet_se_excite_backward": ([_PTR] * 8 + [_INT] * 4 + [_PTR], _INT),
+        "fenet_se_scale": ([_PTR] * 4 + [_INT] * 4 + [_PTR] * 9, _INT),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
